@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""A guided tour of TriAlign-TPU (runs on CPU or TPU).
+"""A guided tour of TriAlign (runs on the CPU or an NVIDIA GPU).
 
     python examples/tour.py
 
 Covers: scoring config, single alignment, alignment recovery, batching,
-long-sequence blocked alignment, checkpoint/resume, and the parity oracle.
+long-sequence sliced sweep, checkpoint/resume, and the parity oracle.
 """
 
 import os
@@ -58,14 +58,14 @@ def main():
     r = trialign.align(a, b, c)
     print(f"dat triplet score={r.score} (paper repo's 64-symbol vectors)")
 
-    # --- 6. Long sequences: the blocked (sliced) sweep -------------------
+    # --- 6. Long sequences: the sliced sweep -----------------------------
     a, b, c = (rng.integers(0, 4, size=400).astype(np.uint8) for _ in range(3))
-    r = trialign.align(a, b, c, backend="blocked")
-    print(f"400^3 blocked score={r.score} ({r.gcups:.2f} GCUPS)")
+    r = trialign.align(a, b, c, backend="sweep")
+    print(f"400^3 sweep score={r.score} ({r.gcups:.2f} GCUPS)")
 
     # --- 7. Checkpointed + failure-resilient long runs -------------------
     score = trialign.align_resilient(a, b, c, every=4)
-    print(f"resilient run score={score} (faces checkpointed every 4 blocks)")
+    print(f"resilient run score={score} (faces checkpointed every 4 block rows)")
 
     # --- 8. Verify anything against the NumPy oracle ---------------------
     from trialign.golden import align_planes_numpy
@@ -74,9 +74,8 @@ def main():
     print("oracle parity: exact")
 
     # --- 9. Data-parallel throughput across every local device -----------
-    # (one device here is fine; on a TPU pod slice each chip sweeps its
-    # own packed canvases -- see trialign/kernels/mosaic.py.  Mixed
-    # batches >= 64 ride the mosaic tiling engine automatically.)
+    # (one device here is fine; with several cards each sweeps its share
+    # of the triplets.)
     from trialign.dist.batch import align_batch_sharded
 
     scores = align_batch_sharded(trips)

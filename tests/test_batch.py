@@ -84,8 +84,8 @@ def test_api_align_batch_traceback(rng):
 
 
 def test_batch_long_triplets_route_to_blocked(rng):
-    """align_batch beyond the single-block 255 limit falls back to the
-    blocked sweep instead of raising."""
+    """align_batch beyond the batched buckets' 255 limit goes through the
+    sliced sweep instead of raising."""
     from trialign.api import align_batch
     from trialign.golden import align_planes_numpy
     from tests.conftest import random_triplet
@@ -97,9 +97,9 @@ def test_batch_long_triplets_route_to_blocked(rng):
 
 
 def test_batch_long_a_routes_to_blocked(rng):
-    """Triplets with |A| > 4096 exceed the wavefront symbol-skew cap even
-    when |B|,|C| are small; both batch routers must send them to the
-    blocked chain instead of raising (round-1 advisor finding)."""
+    """Triplets with |A| > 4096 exceed the batched buckets even when
+    |B|,|C| are small; both batch routers must send them to the sliced
+    sweep instead of raising (round-1 advisor finding)."""
     from trialign.dist.batch import align_batch_bucketed, align_batch_padded
     from trialign.golden import align_planes_numpy
 
@@ -111,14 +111,14 @@ def test_batch_long_a_routes_to_blocked(rng):
 
 def test_batch_sharded_mixed_long_triplets(rng):
     """align_batch_sharded on a mixed batch with |C| > 255 members must
-    route the long ones through the blocked chain and return exact scores
+    route the long ones through the sliced sweep and return exact scores
     in input order on a 4-device mesh (round-1 VERDICT item 3)."""
     from trialign.dist.batch import align_batch_sharded
     from trialign.dist.mesh import make_mesh
 
     trips = [
         random_triplet(rng, 10, 12, 14),
-        random_triplet(rng, 8, 20, 300),  # beyond the wavefront |C| cap
+        random_triplet(rng, 8, 20, 300),  # beyond the bucket |C| cap
         random_triplet(rng, 15, 9, 11),
         (np.zeros(0, np.uint8), np.zeros(3, np.uint8), np.zeros(3, np.uint8)),
         random_triplet(rng, 6, 18, 290),
@@ -133,27 +133,27 @@ def test_batch_sharded_mixed_long_triplets(rng):
 
 def test_batch_bucketed_mixed_lengths(rng):
     """Mixed-length bucketed batching (BASELINE config 3 shape, miniature):
-    exact scores in input order across wavefront and blocked buckets."""
+    exact scores in input order across batched buckets and sliced-sweep
+    items."""
     from trialign.dist.batch import align_batch_bucketed
     from trialign.golden import align_planes_numpy
     from tests.conftest import random_triplet
 
     trips = [
         random_triplet(rng, 12, 30, 20),
-        random_triplet(rng, 9, 20, 300),   # blocked bucket
+        random_triplet(rng, 9, 20, 300),   # sliced sweep
         random_triplet(rng, 15, 25, 25),
-        random_triplet(rng, 7, 18, 290),   # same blocked bucket
+        random_triplet(rng, 7, 18, 290),   # sliced sweep
     ]
-    got = align_batch_bucketed(trips, chain=2)
+    got = align_batch_bucketed(trips)
     want = [align_planes_numpy(a, b, c) for a, b, c in trips]
     assert got == want
 
 
 def test_batch_submatrix_padded_and_bucketed(rng):
-    """align_batch with a runtime submatrix rides the batched production
-    path (padded vmap; long triplets through the bucketed/blocked route)
-    and matches the golden model; big alphabets fall back to per-item
-    XLA (PARITY.md quirk 5)."""
+    """align_batch with a runtime submatrix rides the batched path (padded
+    vmap; long triplets through the sliced sweep) and matches the golden
+    model; big alphabets go to per-item XLA sweeps (PARITY.md quirk 5)."""
     from trialign.api import align_batch
     from trialign.dist.batch import align_batch_padded
 
@@ -164,17 +164,65 @@ def test_batch_submatrix_padded_and_bucketed(rng):
         tuple(rng.integers(0, 4, int(n)).astype(np.uint8) for n in dims)
         for dims in rng.integers(2, 40, size=(8, 3))
     ]
-    # One beyond-wavefront-cap triplet exercises the bucketed/blocked leg.
+    # One triplet past the buckets exercises the sliced-sweep leg.
     trips.append(tuple(rng.integers(0, 4, n).astype(np.uint8)
                        for n in (20, 30, 280)))
     want = [align_planes_numpy(*t, sc) for t in trips]
     got = [r.score for r in align_batch(trips, sc)]
     assert got == want
     assert align_batch_padded(trips, sc) == want
-    # Big alphabet: still exact, via the XLA fallback.
+    # Big alphabet: still exact, via the XLA sweep.
     big = tuple(tuple(2 if i == j else -1 for j in range(10))
                 for i in range(10))
     sc_big = Scoring(submatrix=big)
     small = trips[:3]
     want_big = [align_planes_numpy(*t, sc_big) for t in small]
     assert [r.score for r in align_batch(small, sc_big)] == want_big
+
+
+def test_batch_bucketed_reports_each_score(rng):
+    """on_scores sees every nonempty triplet once, with its final score
+    (the feed align_batch_resilient keeps finished work from)."""
+    from trialign.dist.batch import align_batch_bucketed
+
+    trips = [random_triplet(rng, 6, 9, 12), random_triplet(rng, 5, 8, 270),
+             (np.zeros(0, np.uint8),) * 3, random_triplet(rng, 7, 10, 11)]
+    seen = {}
+    out = align_batch_bucketed(trips, on_scores=lambda i, s: seen.setdefault(i, s))
+    assert out == [align_planes_numpy(*t) if min(map(len, t)) else 0
+                   for t in trips]
+    assert seen == {i: out[i] for i in (0, 1, 3)}
+
+
+def test_bucket_dims_ladder():
+    from trialign.kernels.plane_math import bucket_dims
+
+    assert bucket_dims(10, 20, 30) == (64, 32, 128)
+    assert bucket_dims(65, 255, 255) == (128, 256, 256)
+    assert bucket_dims(4096, 1, 127) == (4096, 16, 128)
+
+
+def test_batch_on_gpu_engine_sweeps_every_item(rng, monkeypatch):
+    """With the CUDA engine every triplet, bucket-sized or not, goes
+    through the sliced sweep, round-robin over the given devices."""
+    import jax
+    import jax.numpy as jnp
+
+    import trialign.engine as E
+    import trialign.kernels.sweep as S
+    from trialign.dist.batch import align_batch_bucketed
+
+    calls = []
+
+    def fake_sweep(a, b, c, scoring, device=None):
+        calls.append(device)
+        return jnp.int32(align_planes_numpy(a, b, c, scoring))
+
+    monkeypatch.setattr(E, "score_engine", lambda: "cuda")
+    monkeypatch.setattr(S, "align_sweep_async", fake_sweep)
+    trips = [random_triplet(rng, 6, 9, 12), random_triplet(rng, 5, 8, 270),
+             random_triplet(rng, 7, 10, 11)]
+    devs = jax.devices()[:2]
+    got = align_batch_bucketed(trips, devices=devs)
+    assert got == [align_planes_numpy(*t) for t in trips]
+    assert calls == [devs[0], devs[1], devs[0]]

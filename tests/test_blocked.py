@@ -1,125 +1,110 @@
-"""Blocked (sliced) sweep parity tests.
+"""Sliced (blocked) sweep parity through its public entry, align_sweep.
 
-Interpret mode is slow, so the default suite runs one small multi-block
-case with a reduced block shape; the full-size cases are slow-marked.
-Real-TPU parity at 300^3..1k^3 is exercised by bench.py and was verified
-against the golden model / XLA reference during development.
+On the CPU the sweep runs its plain-JAX reference; the same entry runs
+the CUDA kernel on the GPU (tests/test_gpu.py).  Row stripes and padded
+block rows are the sweep's blocking; every case must equal the golden
+model exactly.
 """
 
 import numpy as np
 import pytest
 
+from trialign.config import Scoring
 from trialign.golden import align_planes_numpy
-from trialign.kernels.blocked import align_blocked, plan_dims
+from trialign.kernels import sweep as S
+from trialign.kernels.sweep import align_sweep, plan_stripes
 from tests.conftest import random_triplet
-
-pytestmark = pytest.mark.heavy  # minutes-long on CPU interpret
 
 
 def test_plan_dims_geometry():
-    hb, wc, lab, n_jb, n_kb, qqb, kdim, jdim, s1, s2, unb = plan_dims(300, 300, 300)
-    assert (hb, wc) == (256, 256)
-    assert n_jb == 2 and n_kb == 2  # ceil(300/255)
-    assert qqb % unb == 0 and qqb >= lab + 255 + 255
-    # Face rows are slab-local (q + guard); must cover the last macro-step's
-    # full batch.
-    assert s1 >= qqb + 2 * unb
-    assert s2 >= qqb + 2 * unb
+    """Stripe plan of a 300^3 grid: whole tiles, covering |B| exactly, and
+    one stripe when the budget allows it."""
+    stripes = plan_stripes(300, 300, 300, budget=S.call_bytes(300, 160, 300))
+    assert sum(stripes) == 300 and len(stripes) == 2
+    assert stripes[0] % S.TJ == 0
+    assert plan_stripes(300, 300, 300, budget=1 << 40) == (300,)
 
 
-def test_blocked_multiblock_j(rng):
+def test_blocked_multiblock_j(rng, monkeypatch):
+    monkeypatch.setattr(S, "stripe_budget", lambda: S.call_bytes(10, 16, 50))
     a, b, c = random_triplet(rng, 10, 40, 50)
-    want = align_planes_numpy(a, b, c)
-    got = align_blocked(a, b, c, interpret=True, block_shape=(16, 128))
-    assert got == want
+    assert align_sweep(a, b, c) == align_planes_numpy(a, b, c)
 
 
 def test_blocked_plan_lens_parity(rng):
-    """Planning at padded length caps (shared-kernel batching) must not
-    change scores: runtime length scalars stay exact, padded planes are
-    dead cells."""
-    import jax
-
-    from trialign.kernels.blocked import align_blocked_async
+    """Padding rows and columns past the final cell (the halo and
+    checkpoint modes pad |B| and |C| to whole block rows / stripes) must
+    not change scores: the requested final cell sits inside the padded
+    rectangle."""
+    import jax.numpy as jnp
 
     for lens in [(10, 40, 50), (16, 33, 41), (9, 12, 14)]:
         a, b, c = random_triplet(rng, *lens)
         want = align_planes_numpy(a, b, c)
-        got = int(jax.device_get(align_blocked_async(
-            a, b, c, interpret=True, block_shape=(16, 128),
-            plan_lens=(24, 48, 64),
-        )))
-        assert got == want
+        padded = S.prep_sequences(a, b, c, (lens[0], 48, 64))
+        row, col = S.face_shapes(lens[0], 48, 64)
+        _, _, final = S.sweep_reference(
+            *padded, jnp.zeros(row, jnp.int32), jnp.zeros(col, jnp.int32),
+            Scoring(), dims=(lens[0], 48, 64) + lens[1:])
+        assert int(final.max()) == want
 
 
 @pytest.mark.slow
 def test_blocked_multiblock_jk(rng):
     a, b, c = random_triplet(rng, 8, 35, 300)
-    want = align_planes_numpy(a, b, c)
-    got = align_blocked(a, b, c, interpret=True, block_shape=(16, 128))
-    assert got == want
+    assert align_sweep(a, b, c) == align_planes_numpy(a, b, c)
 
 
 @pytest.mark.slow
 def test_blocked_nondefault_scoring(rng):
-    from trialign.config import Scoring
-
     sc = Scoring(match=2, mismatch=-1, gap_open=3, gap_extend=1, s3_mode="rtl")
     a, b, c = random_triplet(rng, 6, 20, 140)
-    want = align_planes_numpy(a, b, c, sc)
-    got = align_blocked(a, b, c, sc, interpret=True, block_shape=(16, 128))
-    assert got == want
+    assert align_sweep(a, b, c, sc) == align_planes_numpy(a, b, c, sc)
 
 
 def test_blocked_empty():
     e = np.zeros(0, dtype=np.uint8)
-    assert align_blocked(e, e, e) == 0
+    assert align_sweep(e, e, e) == 0
+    assert align_sweep(np.ones(3, np.uint8), e, np.ones(2, np.uint8)) == 0
 
 
-def test_blocked_nondefault_macro_step(rng):
-    """The macro-step (unb) is a plan parameter; a 16-plane macro must give
-    identical scores to the default."""
+def test_blocked_nondefault_macro_step(rng, monkeypatch):
+    """The stripe height is a plan parameter; any split of |B| must give
+    the score of one call."""
     a, b, c = random_triplet(rng, 10, 40, 50)
     want = align_planes_numpy(a, b, c)
-    got = align_blocked(a, b, c, interpret=True, block_shape=(16, 128, 16))
-    assert got == want
+    for h in (16, 32):
+        monkeypatch.setattr(S, "stripe_budget",
+                            lambda h=h: S.call_bytes(10, h, 50))
+        assert align_sweep(a, b, c) == want
 
 
 def test_blocked_chain_parity(rng):
-    """A-axis chain packing: several equal-length A's against shared B/C in
-    one fused sweep must reproduce every individual golden score (the
-    ramp-amortizing throughput mode, plan_dims_packed)."""
-    from trialign.kernels.blocked import align_blocked_chain
+    """Several A's against shared B/C through align_batch: every score
+    equals its golden score."""
+    from trialign.api import align_batch
 
     a_list = [random_triplet(rng, 20, 1, 1)[0] for _ in range(5)]
-    _, b, c = random_triplet(rng, 1, 30, 40)
+    _, b, c = random_triplet(rng, 1, 30, 300)  # past the batched buckets
     want = [align_planes_numpy(a, b, c) for a in a_list]
-    # multi-block geometry: chain borders must survive face exchange
-    got = align_blocked_chain(a_list, b, c, block_shape=(16, 128))
-    assert got == want
-    # single-block geometry
-    got2 = align_blocked_chain(a_list, b, c, block_shape=(48, 128))
-    assert got2 == want
+    assert [r.score for r in align_batch([(a, b, c) for a in a_list])] == want
 
 
 def test_blocked_chain_single_and_empty(rng):
-    from trialign.kernels.blocked import align_blocked_chain
+    from trialign.api import align_batch
 
     a, b, c = random_triplet(rng, 12, 18, 25)
-    assert align_blocked_chain([a], b, c, block_shape=(32, 128)) == [
+    assert [r.score for r in align_batch([(a, b, c)])] == [
         align_planes_numpy(a, b, c)
     ]
-    assert align_blocked_chain([], b, c) == []
+    assert align_batch([]) == []
     e = np.zeros(0, dtype=np.uint8)
-    assert align_blocked_chain([a, a], e, c) == [0, 0]
+    assert [r.score for r in align_batch([(a, e, c), (a, e, c)])] == [0, 0]
 
 
 def test_blocked_chain_nondefault_scoring(rng):
-    from trialign.config import Scoring
-    from trialign.kernels.blocked import align_blocked_chain
-
     sc = Scoring(match=2, mismatch=-3, gap_open=4, gap_extend=1, s3_mode="rtl")
     a_list = [random_triplet(rng, 15, 1, 1)[0] for _ in range(3)]
     _, b, c = random_triplet(rng, 1, 22, 35)
     want = [align_planes_numpy(a, b, c, sc) for a in a_list]
-    assert align_blocked_chain(a_list, b, c, sc, block_shape=(16, 128)) == want
+    assert [align_sweep(a, b, c, sc) for a in a_list] == want

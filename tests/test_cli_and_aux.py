@@ -99,38 +99,21 @@ def test_metrics_record():
 def test_checkpoint_resume_parity(rng, tmp_path):
     from trialign.checkpoint import CheckpointedAligner
 
-    a, b, c = random_triplet(rng, 8, 35, 150)
+    a, b, c = random_triplet(rng, 8, 75, 40)
     want = align_planes_numpy(a, b, c)
     path = str(tmp_path / "ck.npz")
 
     # Run the first half, "crash", resume in a new runner.
-    r1 = CheckpointedAligner(a, b, c, ckpt_path=path, every=2,
-                             block_shape=(16, 128), interpret=True)
+    r1 = CheckpointedAligner(a, b, c, ckpt_path=path, every=2, rows=16)
+    assert r1.n_blocks == 5
     half = r1.n_blocks // 2
     while r1.next_idx < half:
         saved = r1.next_idx
-        r1.every = min(2, half - r1.next_idx)
-        r1.run_one = None
-        # advance exactly one segment via run() internals
-        import jax
-        import jax.numpy as jnp
-
-        from trialign.checkpoint import _segment
-
-        cnt = min(r1.every, r1.n_blocks - r1.next_idx)
-        srf, cf, res = _segment(
-            jnp.asarray(r1.lens), jnp.asarray(r1.a_ext), jnp.asarray(r1.b_arr),
-            jnp.asarray(r1.c_arr), jnp.asarray(r1.srf), jnp.asarray(r1.cf),
-            jnp.asarray(r1.res), jnp.int32(r1.next_idx), r1.dims, cnt,
-            r1.scoring, True,
-        )
-        r1.srf, r1.cf, r1.res = (np.asarray(jax.device_get(x)) for x in (srf, cf, res))
-        r1.next_idx += cnt
+        r1.run_segment(1)
         r1.save()
         assert r1.next_idx > saved
 
-    r2 = CheckpointedAligner(a, b, c, ckpt_path=path, every=3,
-                             block_shape=(16, 128), interpret=True)
+    r2 = CheckpointedAligner(a, b, c, ckpt_path=path, every=3, rows=16)
     assert r2.resume()
     assert r2.next_idx == r1.next_idx
     assert r2.run() == want
@@ -141,13 +124,14 @@ def test_checkpoint_incompatible_shapes_rejected(rng, tmp_path):
 
     a, b, c = random_triplet(rng, 8, 35, 150)
     path = str(tmp_path / "ck.npz")
-    r1 = CheckpointedAligner(a, b, c, ckpt_path=path, every=2,
-                             block_shape=(16, 128), interpret=True)
+    r1 = CheckpointedAligner(a, b, c, ckpt_path=path, every=2, rows=16)
     r1.save()
     a2, b2, c2 = random_triplet(rng, 8, 35, 290)
-    r2 = CheckpointedAligner(a2, b2, c2, ckpt_path=path, every=2,
-                             block_shape=(16, 128), interpret=True)
+    r2 = CheckpointedAligner(a2, b2, c2, ckpt_path=path, every=2, rows=16)
     assert not r2.resume()
+    # Same problem, other block rows: a different geometry, not resumed.
+    r3 = CheckpointedAligner(a, b, c, ckpt_path=path, every=2, rows=32)
+    assert not r3.resume()
 
 
 def test_align_resilient_recovers_from_injected_failure(rng, tmp_path, monkeypatch):
@@ -179,8 +163,7 @@ def test_align_resilient_recovers_from_injected_failure(rng, tmp_path, monkeypat
         every=1,
         max_retries=3,
         backoff_s=0.0,
-        interpret=True,
-        block_shape=(16, 128),
+        rows=16,
     )
     assert got == want
     assert crashes["left"] == 0
@@ -231,55 +214,48 @@ def test_align_batch_resilient_gives_up():
 
 
 def test_align_batch_resilient_mosaic_end_to_end(rng, monkeypatch):
-    """Integration: kill the mosaic fleet mid-DRAIN (after one canvas
+    """Integration: kill the bucketed batch mid-DRAIN (after the first
     dispatch's scores landed) and check the retry scores only the lost
-    dispatch's problems, with exact golden parity throughout."""
+    problems, with exact golden parity throughout."""
     import jax
 
-    import trialign.kernels.mosaic as MZ
     from trialign.golden import align_planes_numpy
     from trialign.resilience import align_batch_resilient
     from tests.conftest import random_triplet
 
-    with MZ.test_canvas():
-        # Force two canvas dispatches: 8 problems with IDENTICAL final
-        # cells can't share tiles (one capture per (lb, lc) per tile),
-        # and the shrunk canvas caps tiles per dispatch at nt_max=6.
-        monkeypatch.setattr(MZ, "DISPATCH_PENALTY_PLANES", 0)
-        trips = [random_triplet(rng, 12, 10, 24) for _ in range(8)]
-        want = [align_planes_numpy(*t) for t in trips]
+    # Two small-bucket triplets (one dispatch) and two past the buckets
+    # (one sliced-sweep dispatch each).
+    trips = [random_triplet(rng, 12, 10, 24), random_triplet(rng, 9, 11, 20),
+             random_triplet(rng, 6, 8, 260), random_triplet(rng, 5, 9, 270)]
+    want = [align_planes_numpy(*t) for t in trips]
 
-        items = [(i, MZ._rotate(t, True)) for i, t in enumerate(trips)]
-        ndisp = len(MZ.pack_mosaic(items))
-        assert ndisp >= 2, "workload must split into >= 2 dispatches"
+    real_get = jax.device_get
+    state = {"fetches": 0, "armed": True}
 
-        real_get = jax.device_get
-        state = {"fetch_1d": 0, "armed": True}
+    def flaky_get(x):
+        if state["armed"]:
+            state["fetches"] += 1
+            if state["fetches"] == 2:  # the second dispatch's drain
+                state["armed"] = False
+                raise RuntimeError("injected device loss at drain")
+        return real_get(x)
 
-        def flaky_get(x):
-            if state["armed"] and getattr(x, "ndim", None) == 1:
-                state["fetch_1d"] += 1
-                if state["fetch_1d"] == 2:  # second canvas unit's drain
-                    state["armed"] = False
-                    raise RuntimeError("injected device loss at drain")
-            return real_get(x)
+    monkeypatch.setattr(jax, "device_get", flaky_get)
+    sizes = []
+    from trialign.dist.batch import align_batch_bucketed
 
-        monkeypatch.setattr(jax, "device_get", flaky_get)
-        sizes = []
-        real_batch = MZ.align_batch_mosaic
+    def counting_batch(sub, scoring, mesh=None, on_scores=None):
+        sizes.append(len(sub))
+        return align_batch_bucketed(sub, scoring, on_scores=on_scores)
 
-        def counting_batch(sub, scoring, mesh=None, on_scores=None):
-            sizes.append(len(sub))
-            return real_batch(sub, scoring, mesh=mesh, on_scores=on_scores)
-
-        out = align_batch_resilient(
-            trips, batch_fn=counting_batch, backoff_s=0.0, max_retries=2
-        )
-        assert out == want
-        assert len(sizes) == 2 and sizes[0] == len(trips)
-        # The retry re-packed strictly fewer problems (first unit's
-        # scores survived the injected loss).
-        assert 0 < sizes[1] < len(trips), sizes
+    out = align_batch_resilient(
+        trips, batch_fn=counting_batch, backoff_s=0.0, max_retries=2
+    )
+    assert out == want
+    assert len(sizes) == 2 and sizes[0] == len(trips)
+    # The retry re-dispatched strictly fewer problems (the first
+    # dispatch's scores survived the injected loss).
+    assert 0 < sizes[1] < len(trips), sizes
 
 
 def test_align_resilient_gives_up(rng, tmp_path, monkeypatch):
@@ -301,8 +277,7 @@ def test_align_resilient_gives_up(rng, tmp_path, monkeypatch):
             ckpt_path=str(tmp_path / "ck2.npz"),
             max_retries=1,
             backoff_s=0.0,
-            interpret=True,
-            block_shape=(16, 128),
+            rows=16,
         )
 
 
@@ -325,15 +300,6 @@ def test_cli_align_metrics_and_profile(tmp_path, capsys):
     assert f"profiler trace written to {prof}" in err
 
 
-def test_cli_bench_wavefront_mode_size_conflict():
-    """--mode wavefront with --size > 255 must error, not silently switch
-    to the blocked path (round-1 advisor finding)."""
-    from trialign.cli import main
-
-    with pytest.raises(SystemExit, match="wavefront requires"):
-        main(["bench", "--mode", "wavefront", "--size", "300"])
-
-
 def test_cli_align_fasta_triplet(tmp_path, capsys):
     from trialign.cli import main
 
@@ -352,21 +318,46 @@ def test_cli_align_fasta_triplet(tmp_path, capsys):
 
 
 def test_benchmarks_helpers_cpu_smoke():
-    """benchmarks module runs end-to-end on CPU (interpret kernels)."""
-    from trialign.benchmarks import bench_single_stream, parity_check
+    """benchmarks module runs end-to-end on CPU (reference engine) and
+    names the device of every measurement."""
+    from trialign.benchmarks import bench_sweep, device_fields, parity_check
 
     assert isinstance(parity_check(), int)
-    gcups, dt = bench_single_stream(12, 2)
+    gcups, dt = bench_sweep(12, 2)
     assert gcups > 0 and dt > 0
+    fields = device_fields()
+    assert fields["platform"] == "cpu" and fields["device_count"] == 8
+    assert fields["gpu"] == "not available"
 
 
 def test_wavefront_rejects_oversize():
-    import numpy as np
     import pytest
 
-    from trialign.kernels.wavefront import bucket_dims
+    from trialign.kernels.plane_math import bucket_dims
 
     with pytest.raises(ValueError):
         bucket_dims(64, 300, 64)  # |B| > 255
     with pytest.raises(ValueError):
-        bucket_dims(5000, 64, 64)  # |A| beyond the VMEM-resident skew
+        bucket_dims(5000, 64, 64)  # |A| past the batched buckets
+
+
+def test_cli_selftest_passes(capsys):
+    from trialign.cli import main
+
+    assert main(["selftest"]) == 0
+    out = capsys.readouterr().out
+    assert "sweep" in out and "PASS" in out and "MISMATCH" not in out
+
+
+def test_cli_align_sweep_backend(capsys):
+    from trialign.cli import main
+
+    rc = main(["align", "--a", "ACGTAC", "--b", "ACGAC", "--c", "ACTTAC",
+               "--backend", "sweep", "--json"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out)
+    from trialign.config import encode
+
+    assert out["backend"] == "sweep"
+    assert out["score"] == align_planes_numpy(
+        encode("ACGTAC"), encode("ACGAC"), encode("ACTTAC"))

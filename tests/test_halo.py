@@ -1,9 +1,8 @@
-"""Multi-chip single-triplet halo mode on the virtual CPU mesh: the DP block
-grid k-striped over the 'model' axis, block rows pipelined device-to-device,
-column faces travelling by ppermute.  Exact score parity vs the golden model
-is required at every mesh size."""
+"""Multi-card single-triplet halo mode on the virtual CPU mesh: the (j, k)
+grid k-striped over the 'model' axis, block rows pipelined device to
+device, column faces travelling by ppermute.  Exact score parity vs the
+golden model is required at every mesh size."""
 
-import numpy as np
 import pytest
 
 from trialign.dist.halo import align_sharded_triplet
@@ -11,38 +10,36 @@ from trialign.dist.mesh import make_mesh
 from trialign.golden import align_planes_numpy
 from tests.conftest import random_triplet
 
-pytestmark = pytest.mark.heavy  # minutes-long on CPU interpret
+pytestmark = pytest.mark.heavy  # minutes-long on CPU
 
 
 @pytest.mark.parametrize("ndev", [2, 4])
 def test_halo_matches_golden(rng, ndev):
-    a, b, c = random_triplet(rng, 10, 45, 70 * ndev)
+    a, b, c = random_triplet(rng, 10, 45, 20 * ndev)
     want = align_planes_numpy(a, b, c)
     got = align_sharded_triplet(
-        a, b, c, mesh=make_mesh(data=1, model=ndev), block_shape=(16, 128)
+        a, b, c, mesh=make_mesh(data=1, model=ndev), rows=16
     )
     assert got == want
 
 
-@pytest.mark.parametrize("overlap", [True, False])
-def test_halo_schedules_match_golden(rng, overlap):
-    """Round-3 VERDICT item 4: the ICI-overlapped one-step-lookahead
-    schedule (ppermute of last step's face concurrent with this step's
-    row sweep) and the tight schedule must both give exact parity."""
-    a, b, c = random_triplet(rng, 9, 40, 60 * 3)
+@pytest.mark.parametrize("rows", [16, 48])
+def test_halo_schedules_match_golden(rng, rows):
+    """Block rows shorter and longer than |B|/ndev (a deep and a shallow
+    pipeline) both give exact parity."""
+    a, b, c = random_triplet(rng, 9, 40, 60)
     want = align_planes_numpy(a, b, c)
     got = align_sharded_triplet(
-        a, b, c, mesh=make_mesh(data=1, model=3), block_shape=(16, 128),
-        overlap=overlap,
+        a, b, c, mesh=make_mesh(data=1, model=3), rows=rows,
     )
     assert got == want
 
 
 def test_halo_single_device_degenerates(rng):
-    a, b, c = random_triplet(rng, 8, 30, 140)
+    a, b, c = random_triplet(rng, 8, 30, 40)
     want = align_planes_numpy(a, b, c)
     got = align_sharded_triplet(
-        a, b, c, mesh=make_mesh(data=1, model=1), block_shape=(16, 128)
+        a, b, c, mesh=make_mesh(data=1, model=1), rows=16
     )
     assert got == want
 
@@ -52,7 +49,7 @@ def test_halo_eight_devices(rng):
     a, b, c = random_triplet(rng, 8, 35, 150)
     want = align_planes_numpy(a, b, c)
     got = align_sharded_triplet(
-        a, b, c, mesh=make_mesh(data=1, model=8), block_shape=(16, 128)
+        a, b, c, mesh=make_mesh(data=1, model=8), rows=16
     )
     assert got == want
 
@@ -60,8 +57,8 @@ def test_halo_eight_devices(rng):
 def test_scaling_efficiency_model():
     from trialign.dist.halo import scaling_efficiency
 
-    # BASELINE north star: >= 80% efficiency at 2 hosts once the grid is
-    # deep enough (n_jb >= 4 rows for D=2).
+    # >= 80% efficiency at 2 stripes once the grid is deep enough
+    # (n_jb >= 4 block rows for D=2).
     assert scaling_efficiency(4, 2) == 0.8
     assert scaling_efficiency(32, 2) > 0.96
     assert scaling_efficiency(32, 8) > 0.8
@@ -69,23 +66,21 @@ def test_scaling_efficiency_model():
 
 
 def test_halo_planner_geometry(rng):
-    """Production geometry: align_sharded_triplet with the PLANNER-chosen
-    block shape (no toy override), on a 4-device mesh, with n_kb NOT a
-    multiple of the device count (so the k-padding path executes).
-    Round-1 VERDICT item 7."""
-    a, b, c = random_triplet(rng, 16, 140, 300)
+    """Planner-chosen block rows on a 4-device mesh with |C| not a
+    multiple of the device count (padding columns past the final cell)."""
+    a, b, c = random_triplet(rng, 12, 70, 43)
     want = align_planes_numpy(a, b, c)
     got = align_sharded_triplet(a, b, c, mesh=make_mesh(data=1, model=4))
     assert got == want
 
 
 def test_halo_uneven_kb_padding(rng):
-    """n_kb % ndev != 0: 3 real block columns on 2 devices pads to 4; the
-    extra padded stripe must not perturb the score."""
-    a, b, c = random_triplet(rng, 8, 30, 3 * 127)  # n_kb=3 at tc=127
+    """|B| not a multiple of the block rows: the final cell sits inside
+    the last, padded block row."""
+    a, b, c = random_triplet(rng, 8, 37, 2 * 19)
     want = align_planes_numpy(a, b, c)
     got = align_sharded_triplet(
-        a, b, c, mesh=make_mesh(data=1, model=2), block_shape=(16, 128)
+        a, b, c, mesh=make_mesh(data=1, model=2), rows=16
     )
     assert got == want
 
@@ -93,42 +88,32 @@ def test_halo_uneven_kb_padding(rng):
 def test_halo_efficiency_model_accounts_padding():
     from trialign.dist.halo import halo_efficiency
 
-    # lc=300 in ONE block column (wc=384 covers it): 8 stripes compute
-    # ~7/8 padding and the model must say so.  (The shape is pinned --
-    # the single-chip planner's default moved off the one-column shape
-    # when its stack model was re-anchored in round 5.)
-    eff_old = halo_efficiency(16, 140, 300, 8, block_shape=(144, 384, 8))
-    assert eff_old["k_fill"] <= 0.15
-    assert eff_old["total"] < 0.1
-    # The mesh-aware planner must do strictly better on the same problem.
-    eff_new = halo_efficiency(16, 140, 300, 8)
-    assert eff_new["total"] > 2 * eff_old["total"]
-    # Deep grids with k-aligned stripes approach the pipeline bound.
-    eff2 = halo_efficiency(1024, 4096, 8 * 511, 8, block_shape=(200, 512))
-    assert eff2["k_fill"] == 1.0
+    # One block row over 8 stripes: the pipeline ramp dominates.
+    eff = halo_efficiency(16, 16, 800, 8, rows=16)
+    assert eff["pipeline"] == 1 / 8
+    assert eff["total"] < 0.15
+    # Deep grids with even stripes approach the pipeline bound.
+    eff2 = halo_efficiency(1024, 4096, 8 * 512, 8)
+    assert eff2["k_fill"] == 1.0 and eff2["j_fill"] == 1.0
     assert eff2["total"] > 0.7
+    # Uneven |C| shows up as k_fill < 1.
+    assert halo_efficiency(64, 64, 801, 8)["k_fill"] < 1.0
 
 
-def test_choose_halo_shape_mesh_aligned(rng):
-    """Round-2 VERDICT item 6: the halo planner must choose (hb, wc, unb)
-    jointly with ndev so the block-column count lands on (a multiple of)
-    the stripe count, and the modeled efficiency must clear 0.5 at a
-    mesh-worthy geometry."""
-    from trialign.dist.halo import choose_halo_shape, halo_efficiency
+def test_choose_halo_shape_mesh_aligned():
+    """Block rows are whole sweep tiles and give each stripe at least four
+    block rows of pipeline depth."""
+    from trialign.dist.halo import choose_halo_rows
+    from trialign.kernels.sweep import TJ
 
-    la, lb, lc, ndev = 16, 300, 1016, 8
-    hb, wc, unb = choose_halo_shape(la, lb, lc, ndev)
-    n_kb = max(1, -(-lc // (wc - 1)))
-    assert n_kb % ndev == 0, (hb, wc, n_kb)
-    eff = halo_efficiency(la, lb, lc, ndev)
-    # 0.466 under the round-4 model (which now charges the ICI transfer
-    # and picks the tight/overlapped schedule per shape): this geometry
-    # is pipeline-bound (14 block rows on 8 stripes), and the best
-    # schedule hides the transfer entirely (transfer == 1.0).
-    assert eff["total"] >= 0.45, eff
-    assert eff["transfer"] >= 0.95, eff
-    # Parity at the mesh-aware shape on a real (virtual) mesh.
-    a, b, c = random_triplet(rng, la, 60, 280)
-    want = align_planes_numpy(a, b, c)
-    got = align_sharded_triplet(a, b, c, mesh=make_mesh(data=1, model=4))
-    assert got == want
+    for lb, ndev in [(2048, 4), (300, 8), (17, 2), (100000, 4)]:
+        rows = choose_halo_rows(lb, ndev)
+        assert rows % TJ == 0
+        assert -(-lb // rows) >= min(4 * ndev, -(-lb // TJ))
+
+
+def test_halo_rejects_sharded_traceback(rng):
+    a, b, c = random_triplet(rng, 4, 4, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        align_sharded_triplet(a, b, c, mesh=make_mesh(data=1, model=2),
+                              return_alignment=True)

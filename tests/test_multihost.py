@@ -3,7 +3,7 @@ multihost_mesh, sharded batch scoring -- the distributed-backend coverage
 the single-chip reference never had (SURVEY.md section 2: the RIFFA host
 link was never committed, reference: .gitignore:4).
 
-Runs on CPU (2 virtual devices per process, 4 global) so it needs no TPU.
+Runs on CPU (2 virtual devices per process, 4 global) so it needs no GPU.
 """
 
 import json
@@ -68,7 +68,7 @@ def test_two_process_dcn_batch():
     want = [align_planes_numpy(a, b, c) for a, b, c in trips]
     # The worker's halo triplet continues the same rng stream.
     ah, bh, ch = (
-        rng.integers(0, 4, size=d).astype(np.uint8) for d in (8, 30, 127 * 4)
+        rng.integers(0, 4, size=d).astype(np.uint8) for d in (8, 30, 40 * 4)
     )
     want_halo = align_planes_numpy(ah, bh, ch)
     for pid, out in enumerate(outs):
@@ -79,10 +79,4 @@ def test_two_process_dcn_batch():
         # Cross-process ppermute halo: both processes must report the
         # oracle score for the model-axis-striped triplet.
         assert rec["halo_score"] == want_halo, (pid, rec["halo_score"],
-                                                want_halo)
-        # Sharded traceback across the process boundary: optimal score
-        # AND a rescore-exact alignment.
-        assert rec["tb_score"] == want_halo, (pid, rec["tb_score"],
-                                              want_halo)
-        assert rec["tb_rescore"] == want_halo, (pid, rec["tb_rescore"],
                                                 want_halo)

@@ -1,11 +1,12 @@
-"""TriAlign-TPU: TPU-native optimal three-sequence alignment.
+"""TriAlign: optimal three-sequence alignment on an NVIDIA GPU.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the Verilog
+A from-scratch JAX + CUDA re-design of the capabilities of the Verilog
 accelerator in timmy139710/HW-Accelerator-Three-Sequence-Alignment
 (NORCAS 2018): the 7-matrix affine-gap 3-D DP recurrence computed as a
-wavefront sweep of anti-diagonal planes, the memory-efficient slicing method
-realized as HBM-tiled blocks with skewed halo faces, alignments recovered by
-Hirschberg-style divide and conquer, and scaling via jax.sharding meshes.
+wavefront sweep, the memory-efficient slicing method realized as a sliced
+sweep over (B, C) rectangles exchanging boundary faces, alignments
+recovered by a device-resident choice-capture walk and Hirschberg-style
+divide and conquer, and scaling via jax.sharding meshes.
 """
 
 from trialign.config import Scoring, encode, decode, MATRIX_NAMES  # noqa: F401

@@ -39,27 +39,18 @@ def _prep(seq) -> np.ndarray:
     return np.asarray(seq, dtype=np.uint8)
 
 
-BACKENDS = (
-    "auto", "golden", "xla", "pallas", "pallas_interpret", "blocked", "native"
-)
-
-# Batches whose (rotated) |A| exceeds this skip the mosaic canvas: its
-# chain pitch is la_cap+1 and the static sweep costs ~46 us per skipped
-# macro, so long-A batches are faster through the bucketed blocked path.
-LA_MOSAIC_CAP = 1024
+BACKENDS = ("auto", "golden", "xla", "sweep", "native")
 
 
-def _pick_backend(la: int, lb: int, lc: int) -> str:
-    import jax
+def _pick_backend(scoring: Scoring) -> str:
+    """"sweep" (the sliced sweep on this device's engine, see
+    trialign/engine.py) unless the substitution matrix is past the sweep's
+    alphabet cap, which only the XLA sweep takes."""
+    from trialign.kernels.plane_math import SUBMATRIX_NSYM_CAP
 
-    on_tpu = jax.default_backend() == "tpu"
-    # The single-block kernel keeps the skewed symbol array VMEM-resident,
-    # so long A also needs the blocked path, not just long B/C (the cap
-    # matches wavefront.bucket_dims' |A| <= 4096 limit).
-    small = lb <= 255 and lc <= 255 and la <= 4096
-    if small:
-        return "pallas" if on_tpu else "pallas_interpret" if max(lb, lc) <= 64 else "xla"
-    return "blocked"
+    if scoring.submatrix is not None and len(scoring.submatrix) > SUBMATRIX_NSYM_CAP:
+        return "xla"
+    return "sweep"
 
 
 def align(
@@ -73,16 +64,15 @@ def align(
 ) -> AlignResult:
     """Optimal alignment of three sequences.
 
-    ``backend``: "auto", "golden" (NumPy), "xla", "pallas" (single-block
-    TPU kernel), "blocked" (HBM-tiled sliced sweep for long sequences),
-    "native" (C++ oracle engine; with ``return_alignment`` it runs the
-    host-side choice-capture traceback).
+    ``backend``: "auto", "golden" (NumPy), "xla" (plain XLA plane sweep),
+    "sweep" (the sliced sweep: the CUDA kernel on the GPU, its plain-JAX
+    reference on the CPU), "native" (C++ oracle engine; with
+    ``return_alignment`` it runs the host-side choice-capture traceback).
 
     ``score_bits`` nonzero selects RTL bit-parity mode (stored scores wrap
     as signed score_bits-wide registers, the hardware's unsaturated
     SCORE_BITS=12 behavior; reference: src/TriAlign_1cyc.v:6).  Supported
-    by the "golden", "xla", "pallas" and "blocked" backends; "auto" picks
-    "pallas"/"blocked" on TPU by problem size, else "xla".
+    by the "golden", "xla" and "sweep" backends.
     """
     import time
 
@@ -91,80 +81,46 @@ def align(
     cells = la * lb * lc
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
-    if score_bits:
-        if return_alignment:
-            raise ValueError("score_bits mode is score-only (no traceback)")
-        if backend == "auto":
-            backend = _pick_backend(la, lb, lc)
-            if backend not in ("pallas", "pallas_interpret", "blocked"):
-                backend = "xla"
-            if scoring.submatrix is not None:
-                # Alphabets past the select-chain cap can't ride the
-                # Pallas kernels; wrap-capable AND submatrix-capable
-                # means golden/xla then.
-                from trialign.kernels.wavefront import SUBMATRIX_NSYM_CAP
-
-                if len(scoring.submatrix) > SUBMATRIX_NSYM_CAP:
-                    backend = "xla"
-        if backend not in ("golden", "xla", "pallas", "pallas_interpret",
-                           "blocked"):
-            raise ValueError(
-                f"score_bits wraparound is implemented by the 'golden', "
-                f"'xla', 'pallas' and 'blocked' backends, not {backend!r}"
-            )
+    if score_bits and return_alignment:
+        raise ValueError("score_bits mode is score-only (no traceback)")
 
     if return_alignment:
         # Alignment recovery runs the Hirschberg/direct engine; the score
         # backends do not materialize paths, so `backend` is ignored here
         # except for "native", which selects the C++ choice-capture engine
         # (host-side oracle; ~4 B per DP cell).
+        t0 = time.perf_counter()
         if backend == "native":
             from trialign.native import align_native
 
-            t0 = time.perf_counter()
             score, alignment = align_native(a, b, c, scoring)
-            return AlignResult(
-                score=score,
-                alignment=alignment,
-                backend="native",
-                cells=cells,
-                seconds=time.perf_counter() - t0,
-            )
-        from trialign.traceback import hirschberg_align
+        else:
+            from trialign.traceback import hirschberg_align
 
-        t0 = time.perf_counter()
-        score, alignment = hirschberg_align(a, b, c, scoring)
+            score, alignment = hirschberg_align(a, b, c, scoring)
+            backend = "hirschberg"
         return AlignResult(
             score=score,
             alignment=alignment,
-            backend="hirschberg",
+            backend=backend,
             cells=cells,
             seconds=time.perf_counter() - t0,
         )
 
-    if scoring.submatrix is not None:
-        # Runtime substitution-matrix scoring (the reference testbench's
-        # planned 4x4 score ports, src/TriAlign_tb.sv:220-224,280-290)
-        # runs at production-kernel speed via select-chain tables
-        # (plane_math.submatrix_tables) on both Pallas kernels; alphabets
-        # beyond the table cap and the native engine route to golden/xla.
-        from trialign.kernels.wavefront import SUBMATRIX_NSYM_CAP
-
-        small_alpha = len(scoring.submatrix) <= SUBMATRIX_NSYM_CAP
-        if backend == "auto":
-            backend = _pick_backend(la, lb, lc) if small_alpha else "xla"
-            if backend not in ("pallas", "pallas_interpret", "blocked"):
-                backend = "xla"
-        allowed = ("golden", "xla", "native") + (
-            ("pallas", "pallas_interpret", "blocked") if small_alpha else ()
-        )
-        if backend not in allowed:
-            raise ValueError(
-                f"submatrix scoring is implemented by the {allowed} "
-                f"backends, not {backend!r}"
-            )
     if backend == "auto":
-        backend = _pick_backend(la, lb, lc)
+        backend = _pick_backend(scoring)
+    if score_bits and backend not in ("golden", "xla", "sweep"):
+        raise ValueError(
+            f"score_bits wraparound is implemented by the 'golden', 'xla' "
+            f"and 'sweep' backends, not {backend!r}"
+        )
+    if scoring.submatrix is not None and backend == "sweep" and \
+            _pick_backend(scoring) != "sweep":
+        raise ValueError(
+            f"submatrix scoring with {len(scoring.submatrix)} symbols is "
+            "implemented by the 'golden', 'xla' and 'native' backends, "
+            "not 'sweep'"
+        )
 
     t0 = time.perf_counter()
     if backend == "golden":
@@ -175,23 +131,14 @@ def align(
         from trialign.kernels.xla_ref import align_xla
 
         score = align_xla(a, b, c, scoring, score_bits=score_bits)
-    elif backend in ("pallas", "pallas_interpret"):
-        from trialign.kernels.wavefront import align_wavefront
+    elif backend == "sweep":
+        from trialign.kernels.sweep import align_sweep
 
-        score = align_wavefront(
-            a, b, c, scoring, interpret=(backend == "pallas_interpret"),
-            score_bits=score_bits,
-        )
-    elif backend == "blocked":
-        from trialign.kernels.blocked import align_blocked
-
-        score = align_blocked(a, b, c, scoring, score_bits=score_bits)
-    elif backend == "native":
+        score = align_sweep(a, b, c, scoring, score_bits=score_bits)
+    else:
         from trialign.native import score_native
 
         score = score_native(a, b, c, scoring)
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
 
     return AlignResult(
         score=int(score),
@@ -269,9 +216,10 @@ def align_batch(
 ) -> List[AlignResult]:
     """Align a batch of independent (a, b, c) triplets.
 
-    For throughput workloads (MSA pre-alignment), prefer
-    :func:`trialign.dist.batch.align_batch_sharded`, which buckets by length,
-    pads, and runs data-parallel across every chip of a mesh.
+    Bucket-sized triplets are scored in one batched dispatch per bucket,
+    longer ones one after another through the sliced sweep
+    (trialign.dist.batch.align_batch_bucketed).  Across several cards use
+    :func:`trialign.dist.batch.align_batch_sharded`.
 
     ``return_alignment`` recovers every alignment: small problems run
     concurrently through the C++ choice-capture engine (ctypes releases
@@ -280,89 +228,24 @@ def align_batch(
     """
     import time
 
-    import os
-
-    import jax
-
     if return_alignment:
         return _align_batch_traceback(triplets, scoring)
 
     t0 = time.perf_counter()
     arrs = [(_prep(a), _prep(b), _prep(c)) for a, b, c in triplets]
-    from trialign.kernels.plane_math import hetero_sub_ok
+    if _pick_backend(scoring) == "xla":
+        # Alphabets past the sweep's cap: one XLA sweep per item.
+        from trialign.kernels.xla_ref import align_xla
 
-    if scoring.submatrix is not None and not hetero_sub_ok(scoring.submatrix):
-        # Substitution-matrix scoring beyond the hetero ring's byte
-        # packing (> 4 symbols or entries outside [-128, 127]): small
-        # alphabets ride the batched padded/bucketed production path
-        # (the vmap'd wavefront kernel and chained blocked sweeps both
-        # evaluate the matrix via select-chain tables,
-        # plane_math.submatrix_tables); big alphabets fall back to
-        # per-item XLA sweeps.  (<= 4-symbol byte-range matrices -- the
-        # DNA case -- fall through to the mosaic gate below: the hetero
-        # ring carries packed score planes, plane_math.hetero_sub_planes.)
-        from trialign.kernels.wavefront import SUBMATRIX_NSYM_CAP
+        scores = [align_xla(a, b, c, scoring) for a, b, c in arrs]
+        backend_name = "xla"
+    else:
+        from trialign.dist.batch import align_batch_bucketed
 
-        if len(scoring.submatrix) <= SUBMATRIX_NSYM_CAP:
-            from trialign.dist.batch import align_batch_padded
-
-            scores = align_batch_padded(arrs, scoring)
-            backend_name = "padded"
-        else:
-            from trialign.kernels.xla_ref import align_xla
-
-            scores = [
-                align_xla(a, b, c, scoring)
-                if min(len(a), len(b), len(c)) else 0
-                for a, b, c in arrs
-            ]
-            backend_name = "xla"
-        dt = time.perf_counter() - t0
-        total_cells = sum(len(a) * len(b) * len(c) for a, b, c in arrs) or 1
-        return [
-            AlignResult(score=int(s), backend=backend_name,
-                        cells=len(a) * len(b) * len(c),
-                        seconds=dt * len(a) * len(b) * len(c) / total_cells)
-            for (a, b, c), s in zip(arrs, scores)
-        ]
-    # Large batches run through mosaic tiling (many problems fused per
-    # sweep, one kernel compile); small ones through the padded vmap path
-    # whose compiles are cheap and shapes tight.  Mosaic only pays off on
-    # real hardware (interpret mode sweeps the full canvas in Python) and
-    # only for bounded |A|: the canvas pitch is la_cap+1, so a long-A
-    # batch would pay the per-skipped-macro tax across a mostly-dead
-    # static sweep -- those triplets go to the bucketed path instead.
-    on_tpu = (
-        jax.default_backend() == "tpu"
-        or os.environ.get("TRIALIGN_FORCE_MOSAIC") == "1"
-    )
-    mos_idx: List[int] = []
-    if on_tpu and len(arrs) >= 64:
-        sop = scoring.s3_mode == "sop"
-
-        def la_rot(t):  # |A| after mosaic's axis rotation
-            a, b, c = t
-            return max(len(a), len(b), len(c)) if sop else max(len(a), len(b))
-
-        mos_idx = [i for i, t in enumerate(arrs) if la_rot(t) <= LA_MOSAIC_CAP]
-        if len(mos_idx) < 64:
-            mos_idx = []
-    scores = [0] * len(arrs)
-    if mos_idx:
-        from trialign.kernels.mosaic import align_batch_mosaic
-
-        for i, s in zip(mos_idx, align_batch_mosaic(
-                [arrs[i] for i in mos_idx], scoring)):
-            scores[i] = s
-    rest_idx = [i for i in range(len(arrs)) if i not in set(mos_idx)]
-    if rest_idx:
-        from trialign.dist.batch import align_batch_padded
-
-        for i, s in zip(rest_idx, align_batch_padded(
-                [arrs[i] for i in rest_idx], scoring)):
-            scores[i] = s
+        scores = align_batch_bucketed(arrs, scoring)
+        backend_name = "batch"
     dt = time.perf_counter() - t0
-    # Items share one dispatch, so per-item time is apportioned by cell
+    # Items share dispatches, so per-item time is apportioned by cell
     # count: every item's .gcups then equals the batch aggregate GCUPS
     # (total cells / total seconds) instead of a distorted per-item figure.
     total_cells = sum(len(a) * len(b) * len(c) for a, b, c in arrs) or 1
@@ -372,7 +255,7 @@ def align_batch(
         out.append(
             AlignResult(
                 score=int(s),
-                backend="batch",
+                backend=backend_name,
                 cells=cells,
                 seconds=dt * cells / total_cells,
             )

@@ -1,82 +1,60 @@
-"""Checkpoint / resume for long blocked alignments.
+"""Checkpoint / resume for long sliced-sweep alignments.
 
 The reference has no recovery story (SURVEY.md section 5), but its boundary
 faces in the y/z SRAMs are a complete intermediate state between blocks
-(reference: src/TriAlign_1cyc.v:127-140).  The TPU blocked sweep inherits
-that property: (row-face slabs, column-face slabs, result register, next
-block index) fully determine the remaining computation, so a long run can
-persist them every few blocks and resume after preemption.
+(reference: src/TriAlign_1cyc.v:127-140).  The sliced sweep inherits that
+property: the grid is swept in block rows of ``rows`` rows, one call of the
+sweep contract (kernels/sweep.py) each, and the bottom face of the last
+finished block row plus the next row index fully determine the remaining
+computation.  A long run persists them every few block rows and resumes
+after preemption.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 import os
 import tempfile
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from trialign.config import NUM_MATRICES, PAD_SYMBOL, Scoring
-from trialign.kernels import blocked as BK
+from trialign.config import NUM_MATRICES, Scoring
+from trialign.kernels.sweep import TJ, face_shapes, prep_sequences, sweep
+
+DEFAULT_ROWS = 8 * TJ
 
 
 @functools.partial(
-    jax.jit, static_argnames=("dims", "count", "scoring", "interpret")
+    jax.jit, static_argnames=("count", "rows", "fj", "n_rows", "scoring")
 )
-def _segment(lens, a_ext, b_arr, c_arr, srf, cf, res, idx0, dims, count, scoring, interpret):
-    """Run `count` consecutive blocks starting at flat index idx0."""
-    hb, wc, lab, n_jb, n_kb, qqb, kdim, jdim, s1, s2, unb = dims
-    tb, tc = hb - 1, wc - 1
-    la, lb, lc = lens[0], lens[1], lens[2]
-    askew = BK._build_askew_blocked(a_ext, qqb, hb, wc, unb)
-    zeros = jnp.zeros((hb, wc), jnp.int32)
-    block_call = BK.make_block_call(dims, n_kb, n_jb, scoring, interpret)
-
-    jbstar = (lb - 1) // tb
-    kbstar = (lc - 1) // tc
-    jlstar = lb - jbstar * tb
-    klstar = lc - kbstar * tc
-    target_idx = jbstar * n_kb + kbstar
+def _segment(a_ext, b_pad, c, row, res, r0, count, rows, fj, n_rows, scoring):
+    """Sweep ``count`` block rows starting at block row r0; returns the
+    last bottom face and the final cell's 7 values (set once the last
+    block row ran)."""
+    la, lc = a_ext.shape[0] - 1, c.shape[0]
+    col0 = jnp.zeros(face_shapes(la, rows, lc)[1], jnp.int32)
+    dims = np.array([la, rows, lc, fj, lc], np.int32)
 
     def body(carry, off):
-        srf, cf, res = carry
-        idx = idx0 + off
-        jb = idx // n_kb
-        kb = idx % n_kb
-        is_t = idx == target_idx
-        scal = jnp.stack(
-            [
-                la,
-                jb * tb,
-                kb * tc,
-                jb,
-                kb,
-                jnp.where(is_t, la + jlstar + klstar, jnp.int32(-1)),
-                jnp.where(is_t, jlstar, -1),
-                jnp.where(is_t, klstar, -1),
-            ]
-        ).astype(jnp.int32)
-        bp = jnp.broadcast_to(
-            jax.lax.dynamic_slice(b_arr, (jb * tb,), (hb,))[:, None], (hb, wc)
-        )
-        cp = jnp.broadcast_to(
-            jax.lax.dynamic_slice(c_arr, (kb * tc,), (wc,))[None, :], (hb, wc)
-        )
-        srf, cf, out = block_call(scal, askew, bp, cp, zeros, srf, cf)
-        res = jnp.where(is_t, out, res)
-        return (srf, cf, res), None
+        row, res = carry
+        r = r0 + off
+        b_loc = jax.lax.dynamic_slice(b_pad, (r * rows,), (rows,))
+        row, _, final = sweep(a_ext, b_loc, c, row, col0, scoring, dims=dims)
+        res = jnp.where(r == n_rows - 1, final, res)
+        return (row, res), None
 
-    (srf, cf, res), _ = jax.lax.scan(
-        body, (srf, cf, res), jnp.arange(count, dtype=jnp.int32)
-    )
-    return srf, cf, res
+    (row, res), _ = jax.lax.scan(
+        body, (row, res), jnp.arange(count, dtype=jnp.int32))
+    return row, res
 
 
 class CheckpointedAligner:
-    """Blocked alignment that persists face state every `every` blocks."""
+    """Sliced-sweep alignment that persists its face every `every` block
+    rows."""
 
     def __init__(
         self,
@@ -86,62 +64,47 @@ class CheckpointedAligner:
         scoring: Scoring = Scoring(),
         ckpt_path: Optional[str] = None,
         every: int = 8,
-        interpret: Optional[bool] = None,
-        block_shape: Optional[Tuple[int, int]] = None,
+        rows: int = DEFAULT_ROWS,
     ):
         self.a = np.asarray(a)
         self.b = np.asarray(b)
         self.c = np.asarray(c)
+        if min(len(self.a), len(self.b), len(self.c)) == 0:
+            raise ValueError("checkpointed alignment needs nonempty sequences")
         self.scoring = scoring
         self.every = every
+        self.rows = rows
         self.ckpt_path = ckpt_path or os.path.join(
             tempfile.gettempdir(), "trialign_ckpt.npz"
         )
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-        self.interpret = interpret
-        if block_shape:
-            hb, wc = block_shape[0], block_shape[1]
-            unb = block_shape[2] if len(block_shape) > 2 else BK.DEF_UNB
-        else:
-            hb, wc, unb = BK.choose_block_shape(len(a), len(b), len(c))
-        self.dims = BK.plan_dims(len(a), len(b), len(c), hb, wc, unb)
-
-        hb, wc, lab, n_jb, n_kb, qqb, kdim, jdim, s1, s2, unb = self.dims
-        self.n_blocks = n_jb * n_kb
-        self.a_ext = np.full(lab + 2, PAD_SYMBOL, dtype=np.int32)
-        self.a_ext[1 : len(a) + 1] = self.a
-        self.b_arr = np.full(jdim + hb + 8, PAD_SYMBOL - 1, dtype=np.int32)
-        self.b_arr[1 : len(b) + 1] = self.b
-        self.c_arr = np.full(kdim + wc + 8, PAD_SYMBOL - 2, dtype=np.int32)
-        self.c_arr[1 : len(c) + 1] = self.c
-        self.lens = np.array([len(a), len(b), len(c)], dtype=np.int32)
+        la, lb = len(self.a), len(self.b)
+        self.n_blocks = -(-lb // rows)
+        self.fj = lb - (self.n_blocks - 1) * rows
+        # Padding rows lie below the final cell: no real cell reads them.
+        self.a_ext, self.b_pad, self.c_arr = prep_sequences(
+            self.a, self.b, self.c, (la, self.n_blocks * rows, len(self.c)))
 
         self.next_idx = 0
-        self.srf = np.zeros((n_kb, 8 * s1, wc), dtype=np.int32)
-        self.cf = np.zeros((n_jb, 8 * s2, ((hb + 127) // 128) * 128), dtype=np.int32)
-        self.res = np.zeros((8, 1), dtype=np.int32)
+        self.row = np.zeros(face_shapes(la, rows, len(self.c))[0], np.int32)
+        self.res = np.zeros(NUM_MATRICES, np.int32)
 
     # ------------------------------------------------------------------
     def _fingerprint(self) -> str:
         """Identity of this exact problem: sequences, scoring, geometry.
         Resuming someone else's checkpoint would silently corrupt scores."""
-        import hashlib
-
         h = hashlib.sha256()
         for arr in (self.a, self.b, self.c):
             h.update(np.ascontiguousarray(arr, dtype=np.uint8).tobytes())
         h.update(repr(self.scoring).encode())
-        h.update(repr(self.dims).encode())
+        h.update(repr(self.rows).encode())
         return h.hexdigest()
 
     def save(self) -> None:
         tmp = self.ckpt_path + ".tmp.npz"
         np.savez_compressed(
-            tmp, next_idx=self.next_idx, srf=self.srf, cf=self.cf, res=self.res,
-            lens=self.lens, fingerprint=np.frombuffer(
-                self._fingerprint().encode(), dtype=np.uint8
-            ),
+            tmp, next_idx=self.next_idx, row=self.row, res=self.res,
+            fingerprint=np.frombuffer(self._fingerprint().encode(),
+                                      dtype=np.uint8),
         )
         os.replace(tmp, self.ckpt_path)
 
@@ -151,46 +114,38 @@ class CheckpointedAligner:
         if resumed."""
         if not os.path.exists(self.ckpt_path):
             return False
-        data = np.load(self.ckpt_path)
-        if "fingerprint" not in data or bytes(
-            data["fingerprint"].tobytes()
-        ).decode() != self._fingerprint():
-            return False
-        if data["srf"].shape != self.srf.shape or not np.array_equal(
-            data["lens"], self.lens
-        ):
-            return False
-        self.next_idx = int(data["next_idx"])
-        self.srf = data["srf"]
-        self.cf = data["cf"]
-        self.res = data["res"]
+        with np.load(self.ckpt_path) as data:
+            if "fingerprint" not in data or bytes(
+                data["fingerprint"].tobytes()
+            ).decode() != self._fingerprint():
+                return False
+            if data["row"].shape != self.row.shape:
+                return False
+            self.next_idx = int(data["next_idx"])
+            self.row = data["row"]
+            self.res = data["res"]
         return True
 
+    def run_segment(self, count: int) -> None:
+        """Sweep the next ``count`` block rows."""
+        row, res = _segment(
+            jnp.asarray(self.a_ext), jnp.asarray(self.b_pad),
+            jnp.asarray(self.c_arr), jnp.asarray(self.row),
+            jnp.asarray(self.res), jnp.int32(self.next_idx), count,
+            self.rows, self.fj, self.n_blocks, self.scoring,
+        )
+        self.row = np.asarray(jax.device_get(row))
+        self.res = np.asarray(jax.device_get(res))
+        self.next_idx += count
+
     def run(self, checkpoint: bool = True) -> int:
-        """Run remaining blocks (possibly after resume); returns the score."""
+        """Run remaining block rows (possibly after resume); returns the
+        score."""
         while self.next_idx < self.n_blocks:
-            count = min(self.every, self.n_blocks - self.next_idx)
-            srf, cf, res = _segment(
-                jnp.asarray(self.lens),
-                jnp.asarray(self.a_ext),
-                jnp.asarray(self.b_arr),
-                jnp.asarray(self.c_arr),
-                jnp.asarray(self.srf),
-                jnp.asarray(self.cf),
-                jnp.asarray(self.res),
-                jnp.int32(self.next_idx),
-                self.dims,
-                count,
-                self.scoring,
-                self.interpret,
-            )
-            self.srf = np.asarray(jax.device_get(srf))
-            self.cf = np.asarray(jax.device_get(cf))
-            self.res = np.asarray(jax.device_get(res))
-            self.next_idx += count
+            self.run_segment(min(self.every, self.n_blocks - self.next_idx))
             if checkpoint:
                 self.save()
-        return int(self.res[:NUM_MATRICES, 0].max())
+        return int(self.res.max())
 
 
 def align_blocked_checkpointed(

@@ -4,7 +4,7 @@ This module defines the scoring semantics of the 7-matrix affine-gap 3-D
 dynamic program computed by the reference RTL accelerator
 (reference: src/PE_1cyc.v:55-218, src/TriAlign_1cyc.v:141-181), expressed as
 data rather than hard-coded wires so every backend (NumPy golden model, XLA
-reference, Pallas TPU kernels, native C++ engine) derives the identical math
+reference, the CUDA sweep, native C++ engine) derives the identical math
 from one place.
 
 The seven DP matrices, in canonical order, track which subset of the three
@@ -103,11 +103,9 @@ class Scoring:
     commented 4x4 score-matrix ports but never wired it upstream,
     src/TriAlign_tb.sv:220-224,280-290).  Requires s3_mode="sop" (the rtl
     quirk function is defined by symbol equality, not scores).  Runs on
-    every scoring backend -- both production Pallas kernels evaluate it
-    via gather-free select-chain tables (plane_math.submatrix_tables) for
-    alphabets <= wavefront.SUBMATRIX_NSYM_CAP symbols, golden/xla for any
-    size <= 16 -- and through full alignment recovery (all traceback
-    engines).  Symbols outside the matrix (sequence padding) score the
+    every scoring backend -- the sliced sweep for alphabets <=
+    plane_math.SUBMATRIX_NSYM_CAP symbols, golden/xla for any size <= 16
+    -- and through full alignment recovery (all traceback engines).  Symbols outside the matrix (sequence padding) score the
     matrix minimum, clamped <= -1, so padded cells keep decaying and
     never leak into valid ones.
     """

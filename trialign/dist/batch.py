@@ -2,32 +2,36 @@
 
 The reference aligns one triplet at a time (host FSM S_IDLE->S_ABSW->S_FINISH,
 reference: src/TriAlign_tb.sv:313-333); throughput workloads (MSA
-pre-alignment) need many.  Here a batch of padded triplets becomes one
-leading array axis: vmap adds it to the wavefront kernel, and shard_map
-splits it across the 'data' axis of a device mesh -- the dominant
-multi-chip mode for this workload.
+pre-alignment) need many.  On the GPU each triplet is one asynchronous
+dispatch of the sliced sweep, spread over the devices.  On the CPU a batch
+of padded triplets becomes one leading array axis of the batched plane
+sweep (vmap), and shard_map splits it across the 'data' axis of a device
+mesh; triplets too long for its buckets go through the sliced sweep.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from trialign.config import NUM_MATRICES, PAD_SYMBOL, Scoring
+from trialign.config import NUM_MATRICES, Scoring
 from trialign.kernels.plane_math import (
     PLANE_DELTA,
     SHIFTS,
+    SUBMATRIX_NSYM_CAP,
+    bucket_dims,
+    build_askew,
+    prepare_compact,
     submatrix_pair,
     submatrix_tables,
     target_update,
     transition_groups,
 )
-from trialign.kernels import wavefront as wf
 
 
 def prep_padded(
@@ -35,15 +39,15 @@ def prep_padded(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int, int, int]:
     """Stack triplets into compact common-bucket arrays for the batched core.
 
-    Only the three small sequence vectors cross host->device; the fat skewed
-    symbol planes are built on-chip (wavefront._build_planes)."""
+    Only the three small sequence vectors cross host->device; the skewed
+    symbol planes are built on the device (_build_planes)."""
     la = max(len(t[0]) for t in triplets)
     lb = max(len(t[1]) for t in triplets)
     lc = max(len(t[2]) for t in triplets)
-    lab, hb, wc = wf.bucket_dims(la, lb, lc)
+    lab, hb, wc = bucket_dims(la, lb, lc)
     lens_l, a_l, b_l, c_l = [], [], [], []
     for a, b, c in triplets:
-        lens, a_ext, b_full, c_full = wf.prepare_compact(a, b, c, lab, hb, wc)
+        lens, a_ext, b_full, c_full = prepare_compact(a, b, c, lab, hb, wc)
         lens_l.append(lens)
         a_l.append(a_ext)
         b_l.append(b_full)
@@ -59,28 +63,30 @@ def prep_padded(
     )
 
 
-@functools.partial(
-    jax.jit, static_argnames=("lab", "hb", "wc", "scoring", "engine", "interpret")
-)
-def _batched_scores(lens, a_ext, b_full, c_full, lab, hb, wc, scoring, engine, interpret):
+def _build_planes(a_ext, b_full, c_full, lab, hb, wc):
+    """Device-side symbol planes of one padded problem: the skewed A array
+    (row qq - q is plane q's A symbol) and the B/C planes."""
+    qq = lab + hb + wc
+    askew = build_askew(a_ext, qq, qq + hb + 8, wc)
+    bp = jnp.broadcast_to(b_full[:, None], (hb, wc))
+    cp = jnp.broadcast_to(c_full[None, :], (hb, wc))
+    return askew, bp, cp
+
+
+@functools.partial(jax.jit, static_argnames=("lab", "hb", "wc", "scoring"))
+def _batched_scores(lens, a_ext, b_full, c_full, lab, hb, wc, scoring):
     """(B, ...) compact inputs -> (B,) int32 optimal scores."""
-    if engine == "pallas":
-        single = lambda l, a_, b_, c_: wf._run_compact(
-            l, a_, b_, c_, lab, hb, wc, scoring, interpret
-        )
-        outs = jax.vmap(single)(lens, a_ext, b_full, c_full)  # (B, 8, 1)
-        return jnp.max(outs[:, :NUM_MATRICES, 0], axis=1)
 
     def one(l, a_, b_, c_):
-        askew, bp, cp = wf._build_planes(a_, b_, c_, lab, hb, wc)
+        askew, bp, cp = _build_planes(a_, b_, c_, lab, hb, wc)
         return _sweep_padded(l, askew, bp, cp, lab, hb, wc, scoring)
 
     return jax.vmap(one)(lens, a_ext, b_full, c_full)
 
 
 def _sweep_padded(lens, askew, bp, cp, lab, hb, wc, scoring: Scoring):
-    """XLA engine consuming the same padded inputs as the Pallas kernel:
-    a lax.scan plane sweep with runtime lengths and mask-reduce extraction."""
+    """The batched small-problem sweep: a lax.scan plane sweep over one
+    padded bucket with runtime lengths and mask-reduce extraction."""
     w = scoring.weight_matrix()
     groups = transition_groups(w)
     match = jnp.int32(scoring.match)
@@ -97,8 +103,8 @@ def _sweep_padded(lens, askew, bp, cp, lab, hb, wc, scoring: Scoring):
         sub_t = None
         s_bc = jnp.where(bp == cp, match, mismatch)
     else:
-        # Same select-chain tables as the Pallas kernels
-        # (plane_math.submatrix_tables): pads fall through to the floor.
+        # Select-chain tables (plane_math.submatrix_tables): pads fall
+        # through to the floor.
         sub_t = submatrix_tables(bp, cp, scoring.submatrix, jnp.int32,
                                  jnp.where)
         s_bc = sub_t[2]
@@ -151,175 +157,133 @@ def _sweep_padded(lens, askew, bp, cp, lab, hb, wc, scoring: Scoring):
     return jnp.max(captured)
 
 
-def _pick_engine(interpret_ok: bool = True) -> Tuple[str, bool]:
-    if jax.default_backend() == "tpu":
-        return "pallas", False
-    return "xla", False
+def _fits_bucket(t) -> bool:
+    """True when a triplet fits the batched small-problem sweep."""
+    return len(t[1]) <= 255 and len(t[2]) <= 255 and len(t[0]) <= 4096
+
+
+def _batched_padded(triplets, scoring):
+    """Device (B,) scores of nonempty bucket-sized triplets, not waited
+    for."""
+    lens, a_ext, b_full, c_full, lab, hb, wc = prep_padded(triplets)
+    return _batched_scores(
+        jnp.asarray(lens), jnp.asarray(a_ext), jnp.asarray(b_full),
+        jnp.asarray(c_full), lab, hb, wc, scoring,
+    )
 
 
 def align_batch_padded(
     triplets: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
     scoring: Scoring = Scoring(),
-    engine: Optional[str] = None,
 ) -> List[int]:
     """Align a batch of triplets on the local default device.
 
-    Batches containing triplets beyond the single-block kernel's
-    |B|,|C| <= 255 limit route through the bucketed dispatcher (small
-    buckets stay batched; long ones chain through the blocked sweep).
+    Batches containing triplets beyond the batched sweep's buckets
+    (|B|,|C| <= 255, |A| <= 4096) go through the bucketed dispatcher.
     Triplets with an empty sequence score 0 (border-face semantics)."""
     if not triplets:
         return []
-    empty = [i for i, t in enumerate(triplets) if min(map(len, t)) == 0]
-    if empty:
-        keep = [i for i in range(len(triplets)) if min(map(len, triplets[i])) > 0]
-        sub = align_batch_padded([triplets[i] for i in keep], scoring, engine)
-        out = [0] * len(triplets)
-        for i, s in zip(keep, sub):
-            out[i] = s
-        return out
-    # Triplets beyond the wavefront caps (|B|,|C| <= 255 AND |A| <= 4096,
-    # wavefront.bucket_dims) must route through the bucketed dispatcher.
-    if any(
-        len(t[1]) > 255 or len(t[2]) > 255 or len(t[0]) > 4096 for t in triplets
-    ):
+    if not all(_fits_bucket(t) and min(map(len, t)) > 0 for t in triplets):
         return align_batch_bucketed(triplets, scoring)
-    lens, askew, bp, cp, lab, hb, wc = prep_padded(triplets)
-    if (scoring.submatrix is not None
-            and len(scoring.submatrix) > wf.SUBMATRIX_NSYM_CAP):
-        # Alphabets past the select-chain cap can't ride the Pallas
-        # kernel (its bucket geometry does not budget the 2*nsym+1 table
-        # planes); the XLA engine evaluates the same tables at any size.
-        engine = "xla"
-    if engine is None:
-        engine, interpret = _pick_engine()
-    else:
-        interpret = engine == "pallas" and jax.default_backend() != "tpu"
-    scores = _batched_scores(
-        jnp.asarray(lens),
-        jnp.asarray(askew),
-        jnp.asarray(bp),
-        jnp.asarray(cp),
-        lab,
-        hb,
-        wc,
-        scoring,
-        engine,
-        interpret,
-    )
-    return [int(s) for s in jax.device_get(scores)]
-
-
-@functools.lru_cache(maxsize=64)
-def _chained_blocked_fn(dims, scoring, count, interpret):
-    """jit'd chain of `count` blocked alignments sharing one geometry."""
-    from trialign.kernels import blocked as BK
-
-    @jax.jit
-    def chained(*flat):
-        outs = []
-        for i in range(count):
-            lens, ae, ba, ca = flat[4 * i : 4 * i + 4]
-            outs.append(
-                BK._blocked_core(lens, ae, ba, ca, dims, scoring, interpret)[
-                    :NUM_MATRICES
-                ].max()
-            )
-        return jnp.stack(outs)
-
-    return chained
-
-
-def _blocked_group(triplets, scoring, interpret, chain=8):
-    """Score triplets sharing a block geometry, `chain` per dispatch.
-
-    Chain-batches round-robin across the local devices: dispatch is async,
-    so independent chains overlap on a multi-chip host (on one chip this
-    degenerates to sequential execution)."""
-    from trialign.kernels import blocked as BK
-
-    devices = jax.local_devices()
-
-    la = max(len(t[0]) for t in triplets)
-    lb = max(len(t[1]) for t in triplets)
-    lc = max(len(t[2]) for t in triplets)
-    shape = BK.choose_block_shape(la, lb, lc,
-                                  live_planes=BK._live_planes_for(scoring))
-    dims = BK.plan_dims(la, lb, lc, *shape)
-    hb, wc, lab = dims[0], dims[1], dims[2]
-    kdim, jdim = dims[6], dims[7]
-
-    def prep(a, b, c):
-        a_ext = np.full(lab + 2, PAD_SYMBOL, np.int32)
-        a_ext[1 : len(a) + 1] = a
-        b_arr = np.full(jdim + hb + 8, PAD_SYMBOL - 1, np.int32)
-        b_arr[1 : len(b) + 1] = b
-        c_arr = np.full(kdim + wc + 8, PAD_SYMBOL - 2, np.int32)
-        c_arr[1 : len(c) + 1] = c
-        lens = np.array([len(a), len(b), len(c)], np.int32)
-        return (lens, a_ext, b_arr, c_arr)
-
-    n = len(triplets)
-    pending = []  # (device result, real count)
-    for ci, off in enumerate(range(0, n, chain)):
-        grp = list(triplets[off : off + chain])
-        real = len(grp)
-        while len(grp) < min(chain, n):  # pad the tail: one compile per dims
-            grp.append(grp[0])
-        fn = _chained_blocked_fn(dims, scoring, len(grp), interpret)
-        dev = devices[ci % len(devices)]
-        flat = [jax.device_put(x, dev) for t in grp for x in prep(*t)]
-        pending.append((fn(*flat), real))  # async dispatch; overlaps chips
-    scores: List[int] = []
-    for out, real in pending:
-        scores.extend(int(s) for s in jax.device_get(out)[:real])
-    return scores
+    return [int(s) for s in jax.device_get(_batched_padded(triplets, scoring))]
 
 
 def align_batch_bucketed(
     triplets: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
     scoring: Scoring = Scoring(),
-    chain: int = 8,
+    on_scores: Optional[Callable[[int, int], None]] = None,
+    devices: Optional[Sequence] = None,
 ) -> List[int]:
-    """Score a mixed-length batch: bucket by kernel geometry, one batched
-    dispatch per wavefront bucket and chained blocked dispatches per long
-    bucket (BASELINE config 3: 1024 triplets, len 128-512, padded/bucketed).
+    """Score a mixed-length batch in input order.
 
-    Returns scores in input order."""
+    On the GPU every triplet goes through the sliced sweep
+    (kernels/sweep.py): on the H100 it beats the batched XLA sweep on
+    bucket-sized problems too (PERF.md).  On the CPU, triplets that fit a
+    bucket of the batched sweep are scored one dispatch per bucket and the
+    rest through the sweep.  Sweep dispatches go round-robin over
+    ``devices`` (default: the local devices), and every dispatch is queued
+    before the first result is fetched.  ``on_scores(index, score)`` is
+    called for each score as its dispatch drains, so a caller can keep
+    what finished if a later one fails."""
+    from trialign.engine import score_engine
+    from trialign.kernels.sweep import align_sweep_async
+
     if not triplets:
         return []
-    interpret = jax.default_backend() != "tpu"
-    small: dict = {}
-    large: dict = {}
+    batched = score_engine() == "reference" or (
+        scoring.submatrix is not None
+        and len(scoring.submatrix) > SUBMATRIX_NSYM_CAP)
     out = [0] * len(triplets)
-    for i, (a, b, c) in enumerate(triplets):
-        la, lb, lc = len(a), len(b), len(c)
-        if min(la, lb, lc) == 0:
+    buckets: dict = {}
+    sweep_idx = []
+    for i, t in enumerate(triplets):
+        if min(map(len, t)) == 0:
             continue  # final cell on a zero-border face: score 0
-        if lb <= 255 and lc <= 255 and la <= 4096:
-            key = wf.bucket_dims(la, lb, lc)
-            small.setdefault(key, []).append(i)
+        if batched and _fits_bucket(t):
+            buckets.setdefault(bucket_dims(*map(len, t)), []).append(i)
         else:
-            key = (-(-la // 128), -(-lb // 128), -(-lc // 128))
-            large.setdefault(key, []).append(i)
-    for key, idxs in small.items():
-        scores = align_batch_padded([triplets[i] for i in idxs], scoring)
+            sweep_idx.append(i)
+    pending = []  # (indices, device result)
+    for idxs in buckets.values():
+        pending.append((idxs, _batched_padded([triplets[i] for i in idxs],
+                                              scoring)))
+    devices = list(devices or jax.local_devices())
+    for n, i in enumerate(sweep_idx):
+        pending.append(([i], align_sweep_async(
+            *triplets[i], scoring, device=devices[n % len(devices)])))
+    for idxs, dev in pending:
+        scores = np.atleast_1d(jax.device_get(dev))
         for i, s in zip(idxs, scores):
+            out[i] = int(s)
+            if on_scores is not None:
+                on_scores(i, out[i])
+    return out
+
+
+def _split_long(triplets, scoring, score_short):
+    """Score the triplets that do not fit a bucket (or have an empty
+    sequence) through the bucketed dispatcher and the rest through
+    ``score_short``; returns scores in input order."""
+    long_idx = [i for i, t in enumerate(triplets)
+                if not _fits_bucket(t) or min(map(len, t)) == 0]
+    long_set = set(long_idx)
+    short_idx = [i for i in range(len(triplets)) if i not in long_set]
+    out = [0] * len(triplets)
+    if long_idx:
+        for i, s in zip(long_idx, align_batch_bucketed(
+                [triplets[i] for i in long_idx], scoring)):
             out[i] = s
-    for key, idxs in large.items():
-        scores = _blocked_group(
-            [triplets[i] for i in idxs], scoring, interpret, chain
-        )
-        for i, s in zip(idxs, scores):
+    if short_idx:
+        for i, s in zip(short_idx, score_short(
+                [triplets[i] for i in short_idx])):
             out[i] = s
     return out
+
+
+def _sharded_core(mesh, lab, hb, wc, scoring):
+    spec = P("data")
+    core = functools.partial(_batched_scores, lab=lab, hb=hb, wc=wc,
+                             scoring=scoring)
+    return jax.shard_map(
+        lambda l, a_, b_, c_: core(l, a_, b_, c_),
+        mesh=mesh,
+        in_specs=(spec, spec, spec, spec),
+        out_specs=spec,
+        check_vma=False,
+    )
+
+
+def _pad_to(triplets, n):
+    padded = list(triplets)
+    while len(padded) % n:
+        padded.append(padded[0])  # harmless duplicates, sliced off later
+    return padded
 
 
 def align_batch_multihost(
     triplets: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
     scoring: Scoring = Scoring(),
     mesh: Optional[Mesh] = None,
-    engine: Optional[str] = None,
 ) -> List[int]:
     """Multi-host (DCN) batch alignment over the global device mesh.
 
@@ -327,9 +291,10 @@ def align_batch_multihost(
     usual SPMD contract).  Inputs become global arrays sharded over the
     'data' axis via make_array_from_callback, the batched core runs under
     shard_map exactly as in :func:`align_batch_sharded`, and the scores are
-    allgathered back to every process.  Requires jax.distributed to be
-    initialized (trialign.dist.mesh.init_distributed); also works
-    single-process, where it degenerates to align_batch_sharded.
+    allgathered back to every process.  Long triplets are scored on every
+    process through the local bucketed dispatcher.  Requires
+    jax.distributed to be initialized (trialign.dist.mesh.init_distributed);
+    single-process it is align_batch_sharded.
 
     This is the DCN half of the distributed backend the reference never
     had (its host link, RIFFA PCIe, was never committed --
@@ -344,179 +309,57 @@ def align_batch_multihost(
 
         mesh = multihost_mesh()
     if jax.process_count() == 1:
-        return align_batch_sharded(triplets, scoring, mesh, engine)
-    # The vmap core needs the wavefront caps; long triplets go through the
-    # local bucketed chain on every process (replicated work -- acceptable
-    # for the rare long tail; the sharded fast path carries the volume).
-    long_idx = [
-        i
-        for i, t in enumerate(triplets)
-        if len(t[1]) > 255 or len(t[2]) > 255 or len(t[0]) > 4096
-        or min(map(len, t)) == 0
-    ]
-    if long_idx:
-        long_set = set(long_idx)
-        short_idx = [i for i in range(len(triplets)) if i not in long_set]
-        out = [0] * len(triplets)
-        for i, s in zip(long_idx, align_batch_bucketed(
-                [triplets[i] for i in long_idx], scoring)):
-            out[i] = s
-        if short_idx:
-            for i, s in zip(short_idx, align_batch_multihost(
-                    [triplets[i] for i in short_idx], scoring, mesh, engine)):
-                out[i] = s
-        return out
+        return align_batch_sharded(triplets, scoring, mesh)
 
-    ndata = mesh.shape["data"]
-    n = len(triplets)
-    padded = list(triplets)
-    while len(padded) % ndata:
-        padded.append(padded[0])
-    lens, askew, bp, cp, lab, hb, wc = prep_padded(padded)
-    if engine is None:
-        engine, interpret = _pick_engine()
-    else:
-        interpret = engine == "pallas" and jax.default_backend() != "tpu"
+    def short(trips):
+        n = len(trips)
+        lens, a_ext, b_full, c_full, lab, hb, wc = prep_padded(
+            _pad_to(trips, mesh.shape["data"]))
+        sh = NamedSharding(mesh, P("data"))
 
-    spec = P("data")
-    sh = NamedSharding(mesh, spec)
+        def to_global(x):
+            return jax.make_array_from_callback(x.shape, sh, lambda idx: x[idx])
 
-    def to_global(x):
-        return jax.make_array_from_callback(x.shape, sh, lambda idx: x[idx])
+        scores = _sharded_core(mesh, lab, hb, wc, scoring)(
+            *(to_global(x) for x in (lens, a_ext, b_full, c_full)))
+        gathered = multihost_utils.process_allgather(scores, tiled=True)
+        return [int(s) for s in np.asarray(gathered)[:n]]
 
-    core = functools.partial(
-        _batched_scores,
-        lab=lab, hb=hb, wc=wc, scoring=scoring, engine=engine,
-        interpret=interpret,
-    )
-    fn = jax.shard_map(
-        lambda l, ak, b_, c_: core(l, ak, b_, c_),
-        mesh=mesh,
-        in_specs=(spec, spec, spec, spec),
-        out_specs=spec,
-        check_vma=False,
-    )
-    scores = fn(to_global(lens), to_global(askew), to_global(bp), to_global(cp))
-    gathered = multihost_utils.process_allgather(scores, tiled=True)
-    return [int(s) for s in np.asarray(gathered)[:n]]
+    return _split_long(triplets, scoring, short)
 
 
 def align_batch_sharded(
     triplets: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
     scoring: Scoring = Scoring(),
     mesh: Optional[Mesh] = None,
-    engine: Optional[str] = None,
 ) -> List[int]:
-    """Align a batch data-parallel across the 'data' axis of a mesh.
+    """Align a batch data-parallel across the 'data' axis of a mesh --
+    N reference accelerators side by side.
 
-    Pads the batch up to a multiple of the data-axis size, shards the batch
-    dimension, and runs the padded batched core per device -- the TPU
-    equivalent of running N reference accelerators side by side.
-    """
+    On the GPU the triplets go one by one through the sliced sweep, spread
+    round-robin over the mesh's devices.  On the CPU the bucket-sized part
+    of the batch is padded to a multiple of the data-axis size, sharded
+    along its batch dimension and scored by the batched sweep per device;
+    longer triplets go through the bucketed dispatcher."""
+    from trialign.engine import score_engine
+
     if not triplets:
         return []
     if mesh is None:
         from trialign.dist.mesh import default_mesh
 
         mesh = default_mesh()
-    # Large mixed batches on TPU route through the mosaic tiling engine
-    # with canvas dispatches spread over the mesh 'data' axis -- the same
-    # gate as api.align_batch (>= 64 mosaic-eligible problems, bounded
-    # rotated |A| so the chain pitch stays sane), composed with data
-    # parallelism.  The remainder flows through the padded/bucketed paths
-    # below.
-    import os
+    if score_engine() == "cuda":
+        return align_batch_bucketed(triplets, scoring,
+                                    devices=list(mesh.devices.flat))
 
-    on_tpu = (
-        jax.default_backend() == "tpu"
-        or os.environ.get("TRIALIGN_FORCE_MOSAIC") == "1"
-    )
-    from trialign.kernels.plane_math import hetero_sub_ok
+    def short(trips):
+        n = len(trips)
+        lens, a_ext, b_full, c_full, lab, hb, wc = prep_padded(
+            _pad_to(trips, mesh.shape["data"]))
+        sh = jax.sharding.NamedSharding(mesh, P("data"))
+        args = [jax.device_put(x, sh) for x in (lens, a_ext, b_full, c_full)]
+        scores = _sharded_core(mesh, lab, hb, wc, scoring)(*args)
+        return [int(s) for s in jax.device_get(scores)[:n]]
 
-    if on_tpu and len(triplets) >= 64 and (
-            scoring.submatrix is None or hetero_sub_ok(scoring.submatrix)):
-        from trialign.api import LA_MOSAIC_CAP
-        from trialign.kernels.mosaic import align_batch_mosaic
-
-        sop = scoring.s3_mode == "sop"
-
-        def la_rot(t):
-            a, b, c = t
-            return max(len(a), len(b), len(c)) if sop else max(len(a), len(b))
-
-        mos_idx = [i for i, t in enumerate(triplets)
-                   if la_rot(t) <= LA_MOSAIC_CAP]
-        if len(mos_idx) >= 64:
-            out = [0] * len(triplets)
-            mos_scores = align_batch_mosaic(
-                [triplets[i] for i in mos_idx], scoring, mesh=mesh
-            )
-            for i, s in zip(mos_idx, mos_scores):
-                out[i] = s
-            rest = [i for i in range(len(triplets)) if la_rot(triplets[i]) > LA_MOSAIC_CAP]
-            if rest:
-                for i, s in zip(rest, align_batch_sharded(
-                        [triplets[i] for i in rest], scoring, mesh, engine)):
-                    out[i] = s
-            return out
-    # Triplets beyond the wavefront caps can't join the sharded vmap batch;
-    # route them through the bucketed dispatcher (which chains the blocked
-    # sweep round-robin across local devices) and merge in input order.
-    long_idx = [
-        i
-        for i, t in enumerate(triplets)
-        if len(t[1]) > 255 or len(t[2]) > 255 or len(t[0]) > 4096
-        or min(map(len, t)) == 0
-    ]
-    if long_idx:
-        long_set = set(long_idx)
-        short_idx = [i for i in range(len(triplets)) if i not in long_set]
-        out = [0] * len(triplets)
-        long_scores = align_batch_bucketed([triplets[i] for i in long_idx], scoring)
-        for i, s in zip(long_idx, long_scores):
-            out[i] = s
-        if short_idx:
-            short_scores = align_batch_sharded(
-                [triplets[i] for i in short_idx], scoring, mesh, engine
-            )
-            for i, s in zip(short_idx, short_scores):
-                out[i] = s
-        return out
-    ndata = mesh.shape["data"]
-    n = len(triplets)
-    padded = list(triplets)
-    while len(padded) % ndata:
-        padded.append(padded[0])  # harmless duplicates, sliced off below
-
-    lens, askew, bp, cp, lab, hb, wc = prep_padded(padded)
-    if (scoring.submatrix is not None
-            and len(scoring.submatrix) > wf.SUBMATRIX_NSYM_CAP):
-        engine = "xla"  # past the Pallas select-chain cap (align_batch_padded)
-    if engine is None:
-        engine, interpret = _pick_engine()
-    else:
-        interpret = engine == "pallas" and jax.default_backend() != "tpu"
-
-    core = functools.partial(
-        _batched_scores,
-        lab=lab,
-        hb=hb,
-        wc=wc,
-        scoring=scoring,
-        engine=engine,
-        interpret=interpret,
-    )
-    spec = P("data")
-    # check_vma=False: pallas_call outputs carry no varying-mesh-axes info,
-    # which trips shard_map's default VMA validation.
-    fn = jax.shard_map(
-        lambda l, ak, b_, c_: core(l, ak, b_, c_),
-        mesh=mesh,
-        in_specs=(spec, spec, spec, spec),
-        out_specs=spec,
-        check_vma=False,
-    )
-    scores = fn(
-        jnp.asarray(lens), jnp.asarray(askew), jnp.asarray(bp), jnp.asarray(cp)
-    )
-    return [int(s) for s in jax.device_get(scores)[:n]]
+    return _split_long(triplets, scoring, short)

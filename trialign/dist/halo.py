@@ -1,325 +1,124 @@
-"""Multi-chip single-triplet alignment: block-grid partitioning with ICI
-halo exchange.
+"""Multi-card single-triplet alignment: k-stripes with halo exchange.
 
-One long triplet's DP block grid is split into k-stripes across the 'model'
-axis of the mesh: device d owns block columns kb in [d*W, (d+1)*W).  Row
-faces (skew s = i + k) are column-local slabs and never leave a device; only
-the column face at each stripe boundary crosses chips, via lax.ppermute --
-the distributed generalization of the reference's SRAM boundary-face
-exchange (SURVEY.md section 2: ICI halo exchange is the repo's analogue of
-context/sequence parallelism).
-
-Block rows pipeline across devices as a second-level wavefront.  Two
-schedules (``overlap`` flag):
-
-* tight (overlap=False): device d processes row jb = t - d; the face
-  ppermute sits on the critical path between steps, so each step costs
-  compute + transfer.  D devices finish in n_jb + D - 1 steps.
-* overlapped (overlap=True, default): device d processes row
-  jb = t - 2d, and the ppermute moves the face produced at step t-1
-  while step t's row sweep runs -- the permute's input (last step's
-  face) and the sweep are independent in the dataflow graph, so XLA's
-  latency-hiding scheduler runs the ICI transfer under the compute
-  (SURVEY section 7 hard part (e)).  Each step costs max(compute,
-  transfer); the ramp deepens to n_jb + 2(D - 1) steps.  Wins whenever
-  the transfer is a meaningful fraction of a step, which is exactly the
-  small-block regime the mesh-aware planner favors.
+One long triplet's (j, k) grid is split into k-stripes across the 'model'
+axis of the mesh: device d owns columns (d*W, (d+1)*W].  Block rows of hb
+rows pipeline across the devices as a second-level wavefront: at step t
+device d sweeps block row jb = t - d of its stripe with one call of the
+sliced sweep's contract (kernels/sweep.py), takes its top face from its
+own previous block row, and its left face from device d-1's previous step
+via lax.ppermute -- the distributed form of the reference's boundary-face
+SRAMs (reference: src/TriAlign_1cyc.v:127-140).  D devices finish n_jb
+block rows in n_jb + D - 1 steps.  The cards of one host are joined all
+to all, so the mesh follows the algorithm only.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from trialign.config import NUM_MATRICES, PAD_SYMBOL, Scoring
-from trialign.kernels import blocked as BK
-
-
-def scaling_efficiency(n_jb: int, ndev: int, overlap: bool = False) -> float:
-    """Pipeline efficiency of the k-striped block grid on `ndev` chips.
-
-    Block rows pipeline as a second-level wavefront: D devices finish
-    n_jb rows in n_jb + D - 1 steps (tight schedule) or n_jb + 2(D - 1)
-    steps (overlapped schedule, where the per-step ICI transfer hides
-    under compute instead of adding to it -- see the module docstring).
-    The per-step transfer is one column-face slab (8 * sr2 * hb int32,
-    a few MB) against tens of ms of block compute."""
-    ramp = 2 * (ndev - 1) if overlap else (ndev - 1)
-    return n_jb / (n_jb + ramp)
+from trialign.config import NUM_MATRICES, Scoring
+from trialign.kernels.sweep import TJ, face_shapes, prep_sequences, sweep
 
 
-def choose_halo_shape(la: int, lb: int, lc: int, ndev: int,
-                      vmem_budget: int = 13 * 2**20,
-                      live_planes: int = 16,
-                      stack_per_step: float = 2.0) -> Tuple[int, int, int]:
-    """Mesh-aware (hb, wc, unb) for the halo mode (round-2 VERDICT item 6).
-
-    choose_block_shape optimizes single-chip plane-work and knows nothing
-    about the stripe count, so its wide-wc picks leave n_kb << ndev and
-    the k-padding (n_kb rounds up to a multiple of ndev) computes mostly
-    dead lanes.  This planner minimizes modeled WALL-CLOCK of the
-    ndev-stripe pipeline instead -- per-step compute AND the per-step
-    ICI face transfer, under whichever schedule (tight / overlapped,
-    see the module docstring) is cheaper for the shape -- so it shrinks
-    wc until the column count lands on (a multiple of) the stripe count
-    and shrinks hb to deepen the row pipeline, but only while the face
-    transfer stays hidden.
-
-    ``live_planes``/``stack_per_step``: resident state planes and Mosaic
-    stack temporaries per unrolled step -- (16, 2.0) for the score sweep;
-    the slab-capture kernels of the sharded traceback carry more
-    (kernels/slab.py FWD/BWD_LIVE_PLANES, stack ~3.5)."""
-    best = None
-    lab = BK._round_up(max(la, 16), 16)
-    EFF = {128: 2.00, 256: 1.08, 384: 1.00, 512: 1.00}
-    for unb in (8, 16, 24):
-        fixed = 20000 * 8 // unb
-        # hb from 16 (vs the single-chip planner's 128): small problems
-        # need many block rows to fill an ndev-deep pipeline.
-        for hb in range(16, 513, 8):
-            for wc in (128, 256, 384, 512):
-                tb, tc = hb - 1, wc - 1
-                hbp = BK._round_up(hb, 128)
-                n_jb = max(1, -(-lb // tb))
-                n_kb = -(-max(1, -(-lc // tc)) // ndev) * ndev
-                qqb = BK._round_up(lab + tb + tc, unb)
-                vmem = int(((live_planes + stack_per_step * unb) * hb * wc
-                            + 2 * (hb + unb) * wc
-                            + 2 * 8 * unb * (2 * wc + 2 * hbp + hb)) * 4)
-                if vmem > vmem_budget:
-                    continue
-                sr2 = qqb + 2 * unb + 2
-                # Per-step compute (slot-equivalents) and transfer,
-                # expressed in the same slot units via the measured
-                # rates, so wall stays a pure comparison key.
-                comp = (n_kb // ndev) * qqb * (hb * wc * EFF[wc] + fixed)
-                xfer = (8 * sr2 * hbp * 4 / _ICI_BYTES_PER_S) * _SLOTS_PER_S
-                if ndev == 1:
-                    wall = n_jb * comp
-                else:
-                    wall = min(
-                        (n_jb + ndev - 1) * (comp + xfer),          # tight
-                        (n_jb + 2 * ndev - 2) * max(comp, xfer),    # overlap
-                    )
-                if best is None or wall < best[0]:
-                    best = (wall, hb, wc, unb)
-    if best is None:
-        return (BK.DEF_HB, BK.DEF_WC, BK.DEF_UNB)
-    return (best[1], best[2], best[3])
+def scaling_efficiency(n_jb: int, ndev: int) -> float:
+    """Pipeline efficiency of n_jb block rows on ``ndev`` stripes: the
+    second-level wavefront takes n_jb + ndev - 1 steps for n_jb rows."""
+    return n_jb / (n_jb + ndev - 1)
 
 
-# Modeled per-step ICI transfer and compute rates for the overlap-vs-
-# tight decision (v5e: ~45 GB/s/link usable ICI; the blocked kernel
-# sustains ~20G plane-cell-slots/s -- CLAUDE.md hardware facts).
-_ICI_BYTES_PER_S = 45e9
-_SLOTS_PER_S = 20e9
+def choose_halo_rows(lb: int, ndev: int) -> int:
+    """Block-row height: whole sweep tiles, and at least 4 block rows per
+    stripe so the pipeline ramp stays under 1/4 of the steps."""
+    rows = -(-lb // (4 * ndev))
+    return max(TJ, -(-rows // TJ) * TJ)
 
 
 def halo_efficiency(la: int, lb: int, lc: int, ndev: int,
-                    block_shape: Optional[Tuple[int, int]] = None,
-                    overlap: Optional[bool] = None) -> dict:
-    """Efficiency model of a halo-sharded run, INCLUDING the k-padding loss
-    from rounding the block-column count up to a multiple of the stripe
-    count, the partial fill of the last real row/column of blocks, AND
-    the per-step transfer term (hidden under compute in the overlapped
-    schedule, additive in the tight one).
-
-    Returns {'pipeline', 'j_fill', 'k_fill', 'transfer', 'overlap',
-    'total'}; 'total' is the fraction of ndev-chip peak the partitioning
-    can reach.  ``overlap`` None (default) models BOTH schedules and
-    returns the better one -- the same choice align_sharded_triplet
-    makes at runtime; pass True/False to pin a schedule.  With no
-    explicit block_shape the mesh-aware planner's choice is modeled."""
-    if overlap is None:
-        cands = [halo_efficiency(la, lb, lc, ndev, block_shape, ov)
-                 for ov in (True, False)]
-        return max(cands, key=lambda e: e["total"])
-    if block_shape:
-        hb, wc = block_shape[0], block_shape[1]
-        unb = block_shape[2] if len(block_shape) > 2 else BK.DEF_UNB
-    else:
-        hb, wc, unb = choose_halo_shape(la, lb, lc, ndev)
-    tb, tc = hb - 1, wc - 1
-    n_jb = max(1, -(-lb // tb))
-    n_kb_real = max(1, -(-lc // tc))
-    n_kb_padded = -(-n_kb_real // ndev) * ndev
-    pipe = scaling_efficiency(n_jb, ndev, overlap=overlap)
-    j_fill = lb / (n_jb * tb)
-    k_fill = lc / (n_kb_padded * tc)
-    # One pipeline step sweeps n_kb_padded/ndev local block columns of
-    # qqb planes each and moves one column-face slab across ICI.
-    lab = BK._round_up(max(la, 16), 16)
-    qqb = BK._round_up(lab + tb + tc, unb)
-    sr2 = qqb + 2 * unb + 2
-    step_compute_s = (n_kb_padded // ndev) * qqb * hb * wc / _SLOTS_PER_S
-    step_transfer_s = 8 * sr2 * BK._round_up(hb, 128) * 4 / _ICI_BYTES_PER_S
-    if ndev == 1:
-        transfer = 1.0
-    elif overlap:
-        transfer = step_compute_s / max(step_compute_s, step_transfer_s)
-    else:
-        transfer = step_compute_s / (step_compute_s + step_transfer_s)
+                    rows: Optional[int] = None) -> dict:
+    """Geometry model of a halo-sharded run: pipeline ramp, and the share
+    of real cells in the padded block rows (j_fill) and stripes (k_fill).
+    'total' is the fraction of ndev cards' work the partition can use."""
+    hb = rows or choose_halo_rows(lb, ndev)
+    n_jb = -(-lb // hb)
+    w = -(-lc // ndev)
+    pipe = scaling_efficiency(n_jb, ndev)
+    j_fill = lb / (n_jb * hb)
+    k_fill = lc / (ndev * w)
     return {"pipeline": pipe, "j_fill": j_fill, "k_fill": k_fill,
-            "transfer": transfer, "overlap": overlap,
-            "total": pipe * j_fill * k_fill * transfer}
+            "rows": hb, "total": pipe * j_fill * k_fill}
 
 
 def as_global(mesh, *arrays):
-    """Replicated global jax.Arrays for shard_map inputs: required when the
-    mesh spans processes (multi-host DCN), where plain numpy operands are
-    not addressable by a cross-process computation.  Every process passes
-    identical host values -- the usual SPMD contract (same as
-    dist/batch.py align_batch_multihost's input lifting)."""
+    """Inputs replicated on every device of ``mesh``.  Across processes
+    (multi-host) each process passes identical host values -- the usual
+    SPMD contract -- and the arrays are assembled with
+    make_array_from_callback."""
+    sharding = NamedSharding(mesh, P())
     if jax.process_count() == 1:
-        return tuple(jnp.asarray(x) for x in arrays)
-    from jax.sharding import NamedSharding
-
-    out = []
-    for x in arrays:
-        x = np.asarray(x)
-        s = NamedSharding(mesh, P())
-        out.append(
-            jax.make_array_from_callback(x.shape, s,
-                                         lambda idx, x=x: x[idx])
-        )
-    return tuple(out)
-
-
-def _plan(la, lb, lc, ndev, hb, wc, unb):
-    tb, tc = hb - 1, wc - 1
-    n_kb = max(1, -(-lc // tc))
-    n_kb = -(-n_kb // ndev) * ndev  # pad to a multiple of the stripe count
-    # Recompute dims with the padded k extent so faces/symbols cover it.
-    dims = BK.plan_dims(la, lb, max(lc, n_kb * tc), hb, wc, unb)
-    return dims, n_kb // ndev
+        return tuple(jax.device_put(np.asarray(x), sharding) for x in arrays)
+    return tuple(
+        jax.make_array_from_callback(np.shape(x), sharding,
+                                     lambda idx, x=np.asarray(x): x[idx])
+        for x in arrays
+    )
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("dims", "n_kb_local", "ndev", "scoring", "interpret",
-                     "mesh", "overlap"),
+    static_argnames=("hb", "w", "n_jb", "ndev", "target", "scoring", "mesh"),
 )
-def _halo_core(lens, a_ext, b_arr, c_arr, dims, n_kb_local, ndev, scoring,
-               interpret, mesh, overlap=True):
-    hb, wc, lab, n_jb, n_kb, qqb, kdim, jdim, sr1, sr2, unb = dims
-    tb, tc = hb - 1, wc - 1
-    la, lb, lc = lens[0], lens[1], lens[2]
-    block_call = BK.make_block_call(dims, n_kb_local, 1, scoring, interpret)
+def _halo_core(a_ext, b_pad, c_pad, hb, w, n_jb, ndev, target, scoring, mesh):
+    jbstar, dstar, fj, fk = target
+    la = a_ext.shape[0] - 1
+    row_shape, col_shape = face_shapes(la, hb, w)
+    dims = np.array([la, hb, w, fj, fk], np.int32)
+    perm = [(i, i + 1) for i in range(ndev - 1)]
 
-    jbstar = (lb - 1) // tb
-    kbstar = (lc - 1) // tc
-    jlstar = lb - jbstar * tb
-    klstar = lc - kbstar * tc
-
-    def device_fn(lens, a_ext, b_arr, c_arr):
+    def device_fn(a_ext, b_pad, c_pad):
         d = jax.lax.axis_index("model")
-        askew = BK._build_askew_blocked(a_ext, qqb, hb, wc, unb)
-        zeros = jnp.zeros((hb, wc), jnp.int32)
-
-        srf0 = jnp.zeros((n_kb_local, 8 * sr1, wc), jnp.int32)
-        cf0 = jnp.zeros((1, 8 * sr2, ((hb + 127) // 128) * 128), jnp.int32)
-        res0 = jnp.zeros((8, 1), jnp.int32)
-
-        def row_sweep(jb, srf, cf, res):
-            j0 = jb * tb
-
-            def kb_body(carry, kbl):
-                srf, cf, res = carry
-                kb = d * n_kb_local + kbl
-                k0 = kb * tc
-                is_t = (jb == jbstar) & (kb == kbstar)
-                scal = jnp.stack(
-                    [
-                        la,
-                        j0,
-                        k0,
-                        jnp.int32(0),  # cf slab index (single travelling slab)
-                        kbl,  # srf slab index (device-local)
-                        jnp.where(is_t, la + jlstar + klstar, jnp.int32(-1)),
-                        jnp.where(is_t, jlstar, -1),
-                        jnp.where(is_t, klstar, -1),
-                    ]
-                ).astype(jnp.int32)
-                bp = jnp.broadcast_to(
-                    jax.lax.dynamic_slice(b_arr, (j0,), (hb,))[:, None], (hb, wc)
-                )
-                cp = jnp.broadcast_to(
-                    jax.lax.dynamic_slice(c_arr, (k0,), (wc,))[None, :], (hb, wc)
-                )
-                srf, cf, out = block_call(scal, askew, bp, cp, zeros, srf, cf)
-                res = jnp.where(is_t, out, res)
-                return (srf, cf, res), None
-
-            (srf, cf, res), _ = jax.lax.scan(
-                kb_body, (srf, cf, res), jnp.arange(n_kb_local, dtype=jnp.int32)
-            )
-            return srf, cf, res
-
-        perm = [(i, i + 1) for i in range(ndev - 1)]
-
-        if overlap:
-            # One-step-lookahead schedule: device d sweeps row jb = t - 2d
-            # while the ppermute moves the face its left neighbor produced
-            # at step t-1 -- the permute input (cf_sent, last step's
-            # output) and this step's row_sweep are dataflow-independent,
-            # so the ICI transfer hides under the compute (XLA async
-            # collective-permute).  cf_ready at step t is therefore the
-            # face the left stripe produced at step t-2: it produced row
-            # jb's face at step jb + 2(d-1), which lands here exactly at
-            # step jb + 2d.
-            def step(carry, t):
-                srf, cf_ready, cf_sent, res = carry
-                cf_incoming = jax.lax.ppermute(cf_sent, "model", perm)
-                jb = t - 2 * d
-                valid = (jb >= 0) & (jb < n_jb)
-                srf, cf_out, res = jax.lax.cond(
-                    valid,
-                    lambda args: row_sweep(jnp.maximum(jb, 0), *args),
-                    lambda args: args,
-                    (srf, cf_ready, res),
-                )
-                return (srf, cf_incoming, cf_out, res), None
-
-            nsteps = n_jb + 2 * (ndev - 1)
-            (_, _, _, res), _ = jax.lax.scan(
-                step, (srf0, cf0, cf0, res0),
-                jnp.arange(nsteps, dtype=jnp.int32),
-            )
-            return jax.lax.psum(res, "model")
+        c_loc = jax.lax.dynamic_slice(c_pad, (d * w,), (w,))
+        zero_col = jnp.zeros(col_shape, jnp.int32)
 
         def step(carry, t):
-            srf, cf_recv, res = carry
+            row, col_in, res = carry
             jb = t - d
             valid = (jb >= 0) & (jb < n_jb)
-            srf, cf, res = jax.lax.cond(
-                valid,
-                lambda args: row_sweep(jnp.maximum(jb, 0), *args),
-                lambda args: args,
-                (srf, cf_recv, res),
-            )
-            # Hand this row's right-boundary column face to the next stripe.
-            cf_next = jax.lax.ppermute(cf, "model", perm)
-            return (srf, cf_next, res), None
 
-        nsteps = n_jb + ndev - 1
+            def run(args):
+                row, col_in = args
+                b_loc = jax.lax.dynamic_slice(
+                    b_pad, (jnp.maximum(jb, 0) * hb,), (hb,))
+                return sweep(a_ext, b_loc, c_loc, row, col_in, scoring,
+                             dims=dims)
+
+            def idle(args):
+                return (args[0], zero_col,
+                        jnp.zeros((NUM_MATRICES,), jnp.int32))
+
+            row, col_out, final = jax.lax.cond(valid, run, idle, (row, col_in))
+            res = jnp.where(valid & (jb == jbstar) & (d == dstar), final, res)
+            # Device 0's left face is the zero border: ppermute sends it
+            # zeros.
+            col_next = jax.lax.ppermute(col_out, "model", perm)
+            return (row, col_next, res), None
+
+        carry0 = (jnp.zeros(row_shape, jnp.int32), zero_col,
+                  jnp.zeros((NUM_MATRICES,), jnp.int32))
         (_, _, res), _ = jax.lax.scan(
-            step, (srf0, cf0, res0), jnp.arange(nsteps, dtype=jnp.int32)
-        )
+            step, carry0, jnp.arange(n_jb + ndev - 1, dtype=jnp.int32))
         return jax.lax.psum(res, "model")
 
     fn = jax.shard_map(
-        device_fn,
-        mesh=mesh,
-        in_specs=(P(), P(), P(), P()),
-        out_specs=P(),
+        device_fn, mesh=mesh, in_specs=(P(), P(), P()), out_specs=P(),
         check_vma=False,
     )
-    return fn(lens, a_ext, b_arr, c_arr)
+    return fn(a_ext, b_pad, c_pad)
 
 
 def align_sharded_triplet(
@@ -328,33 +127,20 @@ def align_sharded_triplet(
     c,
     scoring: Scoring = Scoring(),
     mesh: Optional[Mesh] = None,
-    interpret: Optional[bool] = None,
-    block_shape: Optional[Tuple[int, int]] = None,
-    overlap: Optional[bool] = None,
+    rows: Optional[int] = None,
     return_alignment: bool = False,
-):
+) -> int:
     """Optimal score of one long triplet partitioned across the mesh's
-    'model' axis with ICI halo exchange of block boundary faces.
-
-    ``overlap`` True selects the one-step-lookahead schedule that hides
-    the face transfer under block compute; False the tight schedule
-    (one fewer ramp step per device, transfer on the critical path);
-    None (default) lets the efficiency model choose per problem.
-
-    ``return_alignment`` True additionally recovers one optimal alignment
-    via sharded Hirschberg splits (dist/halo_tb.py: the F/G slab sweeps
-    run on this same halo fleet) and returns (score, rows) instead of the
-    bare score -- the capability the reference stubbed out
-    (src/PE_1cyc.v:12-14,30), at beyond-one-chip scale."""
+    'model' axis, block rows of ``rows`` rows (chosen by
+    choose_halo_rows when None) pipelined with halo exchange of the
+    stripes' column faces."""
     if return_alignment:
-        from trialign.dist.halo_tb import hirschberg_align_sharded
-
-        return hirschberg_align_sharded(
-            a, b, c, scoring, mesh=mesh, interpret=interpret
+        raise NotImplementedError(
+            "sharded traceback is not implemented on the GPU; align one "
+            "triplet with trialign.align(..., return_alignment=True), and "
+            "see ROADMAP.md for the sharded traceback item"
         )
-    a = np.asarray(a)
-    b = np.asarray(b)
-    c = np.asarray(c)
+    a, b, c = np.asarray(a), np.asarray(b), np.asarray(c)
     la, lb, lc = len(a), len(b), len(c)
     if min(la, lb, lc) == 0:
         return 0
@@ -363,36 +149,15 @@ def align_sharded_triplet(
 
         mesh = make_mesh(data=1, model=len(jax.devices()))
     ndev = mesh.shape["model"]
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if block_shape:
-        hb, wc = block_shape[0], block_shape[1]
-        unb = block_shape[2] if len(block_shape) > 2 else BK.DEF_UNB
-    else:
-        hb, wc, unb = choose_halo_shape(la, lb, lc, ndev)
-    if overlap is None:
-        overlap = bool(halo_efficiency(
-            la, lb, lc, ndev, block_shape=(hb, wc, unb)
-        )["overlap"])
-    dims, n_kb_local = _plan(la, lb, lc, ndev, hb, wc, unb)
-    _, _, lab, n_jb, n_kb, qqb, kdim, jdim, sr1, sr2, unb = dims
+    hb = rows or choose_halo_rows(lb, ndev)
+    n_jb = -(-lb // hb)
+    w = -(-lc // ndev)
+    jbstar, dstar = (lb - 1) // hb, (lc - 1) // w
+    target = (jbstar, dstar, lb - jbstar * hb, lc - dstar * w)
 
-    a_ext = np.full(lab + 2, PAD_SYMBOL, dtype=np.int32)
-    a_ext[1 : la + 1] = a
-    b_arr = np.full(jdim + hb + 8, PAD_SYMBOL - 1, dtype=np.int32)
-    b_arr[1 : lb + 1] = b
-    c_arr = np.full(kdim + wc + 8, PAD_SYMBOL - 2, dtype=np.int32)
-    c_arr[1 : lc + 1] = c
-    lens = np.array([la, lb, lc], dtype=np.int32)
-
-    res = _halo_core(
-        *as_global(mesh, lens, a_ext, b_arr, c_arr),
-        dims,
-        n_kb_local,
-        ndev,
-        scoring,
-        interpret,
-        mesh,
-        overlap,
-    )
-    return int(jax.device_get(res)[:NUM_MATRICES, 0].max())
+    # Padding rows and columns sit past the final cell: no real cell reads
+    # them.
+    a_ext, b_pad, c_pad = prep_sequences(a, b, c, (la, n_jb * hb, ndev * w))
+    res = _halo_core(*as_global(mesh, a_ext, b_pad, c_pad), hb, w, n_jb,
+                     ndev, target, scoring, mesh)
+    return int(jax.device_get(res).max())

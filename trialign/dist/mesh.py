@@ -2,10 +2,10 @@
 
 The reference is a single chip whose only "communication" is PE-to-PE wires
 and SRAM boundary faces (reference: src/TriAlign_1cyc.v:118-140); its host
-link (RIFFA PCIe) was never committed (.gitignore:4).  The TPU framework
-replaces all of that with jax.sharding meshes: a 'data' axis for independent
-triplets (batch data-parallelism) and a 'model' axis for partitioning one
-long triplet's DP block grid with halo exchange over ICI.
+link (RIFFA PCIe) was never committed (.gitignore:4).  Here jax.sharding
+meshes replace all of that: a 'data' axis for independent triplets (batch
+data-parallelism) and a 'model' axis for partitioning one long triplet's
+grid with halo exchange between cards.
 """
 
 from __future__ import annotations
@@ -50,8 +50,8 @@ def init_distributed(
     is the GLOBAL device list and make_mesh() spans hosts: put the 'data'
     axis across hosts (DCN carries only independent triplets) and keep the
     'model' axis -- whose halo exchange is latency-sensitive -- within a
-    host's ICI domain (SURVEY.md section 2: distributed communication
-    backend)."""
+    host, whose cards are joined by NVLink (SURVEY.md section 2:
+    distributed communication backend)."""
     import os
 
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
@@ -66,8 +66,8 @@ def init_distributed(
 
 
 def multihost_mesh(model_per_host: int = 1) -> Mesh:
-    """(data, model) mesh for a multi-host slice: model axis ICI-local,
-    data axis spanning hosts over DCN."""
+    """(data, model) mesh over several hosts: model axis within a host,
+    data axis spanning hosts over the network."""
     devices = jax.devices()
     model = max(1, model_per_host)
     data = len(devices) // model

@@ -10,7 +10,7 @@ implementations are provided:
   Python; use for n <~ 48 and as the spec of record.
 
 * :func:`align_planes_numpy` -- a vectorized anti-diagonal plane sweep in the
-  exact (j, k)-plane formulation the TPU kernels use (the software analogue of
+  exact (j, k)-plane formulation the plane sweeps use (the software analogue of
   the PE array's wavefront, reference: pic/3DDP.png, src/TriAlign_1cyc.v:276-347).
   Cross-validated against the brute force; fast enough for 256^3.
 
@@ -98,7 +98,7 @@ def align_planes_numpy(
     ``score_bits``-wide integer, reproducing the RTL's unsaturated
     SCORE_BITS=12 registers (reference: src/TriAlign_1cyc.v:6; SURVEY.md
     section 0.3 quirk 3).  0 (default) keeps full int32 range -- the
-    clean-model semantics every TPU backend implements.
+    clean-model semantics every compiled backend implements.
     """
     a, b, c = _as_codes(a), _as_codes(b), _as_codes(c)
     la, lb, lc = len(a), len(b), len(c)

@@ -1,7 +1,7 @@
 """Shared plane-update math for the wavefront sweep.
 
-Every compute backend (XLA reference, Pallas single-block kernel, Pallas
-blocked kernel) performs the same per-plane update: for each of the 7 DP
+Every plane-sweep engine (the XLA references, the batched sweep, the
+traceback engines) performs the same per-plane update: for each of the 7 DP
 matrices, a max over the 7 source matrices at one shifted position of an
 earlier plane, plus a substitution bonus.  This module holds the
 backend-agnostic pieces:
@@ -28,17 +28,18 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from trialign.config import NUM_MATRICES, OFFSETS, Scoring
+from trialign.config import NUM_MATRICES, OFFSETS, PAD_SYMBOL
+
+# Largest runtime substitution matrix the sweep kernels take: the CUDA
+# sweep keeps it as a table in shared memory, the batched sweep as
+# 2*nsym+1 select-chain planes.  Bigger alphabets route to the 'xla' and
+# 'golden' backends.
+SUBMATRIX_NSYM_CAP = 8
 
 # For target t: which earlier plane (1, 2 or 3 steps back) and which (dj, dk)
 # shift its predecessor stack needs.  plane_delta = di + dj + dk.
 PLANE_DELTA: Tuple[int, ...] = tuple(sum(o) for o in OFFSETS)
 SHIFTS: Tuple[Tuple[int, int], ...] = tuple((o[1], o[2]) for o in OFFSETS)
-
-# Substitution selector per target: which pair/triple bonus it receives.
-# 0 -> S3, 1 -> none, 2 -> S(a,b), 3 -> S(b,c), 4 -> S(a,c)
-SUB_KIND: Tuple[int, ...] = (0, 1, 1, 1, 2, 3, 4)
-
 
 def transition_groups(
     w: np.ndarray,
@@ -135,10 +136,10 @@ def fused_plane_update_m7(p1, p2, m7p3, subs, groups, maximum, roll):
 def submatrix_tables(bp, cp, submatrix, dtype, where):
     """Gather-free substitution-plane tables for a runtime score matrix.
 
-    TPU-native realization of the testbench's planned 4x4 score-matrix
-    ports (reference: src/TriAlign_tb.sv:220-224,280-290): XLA gathers are
-    ~ms-slow on TPU, so the pairwise lookups become short select chains
-    over the (static) B/C symbol planes, built ONCE per sweep:
+    The testbench's planned 4x4 score-matrix ports (reference:
+    src/TriAlign_tb.sv:220-224,280-290) as short select chains over the
+    (static) B/C symbol planes, built ONCE per sweep instead of a gather
+    per plane step:
 
     * ``sb[v][j,k] = S(v, B_j)`` and ``sc[v][j,k] = S(v, C_k)`` -- one
       plane per A-symbol value, each an nsym-term constant-select chain;
@@ -189,64 +190,6 @@ def submatrix_pair_score(x, y, submatrix, where, dtype=np.int32):
     return acc
 
 
-def hetero_sub_planes(bq, cq, submatrix, dtype, where):
-    """Packed per-slot substitution planes for the HETERO band-select
-    ring (per-slot B/C, runtime submatrix).  The homo path's static
-    tables (submatrix_tables) cannot serve a hetero chain -- every slot
-    owns its own B/C -- so the ring itself carries the scores, packed so
-    the per-step cost stays flat:
-
-    * ``p0[j,k] = S(B_j, C_k)`` -- plain dtype plane, read directly
-      (zero per-step extraction ops);
-    * ``p1[j,k] = sum_v (S(v, B_j) + 128) << 8v`` -- the per-A-symbol
-      pair scores byte-packed (biased +128), extracted per step by ONE
-      per-lane variable shift on the moving A plane;
-    * ``p2`` likewise for C.
-
-    Out-of-alphabet codes (sequence pads, border sentinels) bake the
-    clamped floor into every byte, matching Scoring.sub_lookup().
-    Requires nsym <= 4 and entries in [-128, 127] (callers route bigger
-    alphabets/values to the padded path -- see hetero_sub_ok).
-
-    TPU-native counterpart of the testbench's planned-but-never-wired
-    score-matrix ports (reference: src/TriAlign_tb.sv:220-224,280-290).
-    Returns (p0, p1, p2, floor)."""
-    nsym = len(submatrix)
-    assert nsym <= 4
-    floor = dtype(min(min(min(r) for r in submatrix), -1))
-    sb, sc = [], []  # sb[v] = S(v, B_j), sc[v] = S(v, C_k)
-    for v in range(nsym):
-        accb = None
-        accc = None
-        for u in range(nsym):
-            cu = dtype(submatrix[v][u])
-            accb = where(bq == u, cu, floor if accb is None else accb)
-            accc = where(cq == u, cu, floor if accc is None else accc)
-        sb.append(accb)
-        sc.append(accc)
-    p0 = None
-    for v in range(nsym):
-        p0 = where(bq == v, sc[v], floor if p0 is None else p0)
-    bias = dtype(128)
-    p1 = (sb[0] + bias)
-    p2 = (sc[0] + bias)
-    for v in range(1, nsym):
-        p1 = p1 | ((sb[v] + bias) << (8 * v))
-        p2 = p2 | ((sc[v] + bias) << (8 * v))
-    return p0, p1, p2, floor
-
-
-def hetero_sub_ok(submatrix) -> bool:
-    """True when a runtime submatrix fits the hetero ring's byte packing
-    (nsym <= 4 symbols, every entry and the clamped floor biasable into
-    one byte)."""
-    if submatrix is None or len(submatrix) > 4:
-        return False
-    lo = min(min(min(r) for r in submatrix), -1)
-    hi = max(max(r) for r in submatrix)
-    return -128 <= lo and hi <= 127
-
-
 def submatrix_pair(ap, stack, floor, where):
     """Per-step pairwise score plane S(A_i, X) for the moving symbol plane
     ``ap`` against a per-symbol table ``stack`` from submatrix_tables:
@@ -257,14 +200,80 @@ def submatrix_pair(ap, stack, floor, where):
     return acc
 
 
-def op_count(scoring: Scoring = Scoring()) -> int:
-    """Vector ops per cell of the grouped update (for cost models)."""
-    groups = transition_groups(scoring.weight_matrix())
-    ops = 0
-    for t in range(NUM_MATRICES):
-        for _, idxs in groups[t]:
-            ops += len(idxs) - 1  # in-group maxes
-            ops += 1  # + weight
-        ops += len(groups[t]) - 1  # cross-group maxes
-        ops += 1  # + substitution
-    return ops
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def bucket_dims(la: int, lb: int, lc: int) -> Tuple[int, int, int]:
+    """Padded (lab, hb, wc) buckets of the batched small-problem sweep:
+    |A| to multiples of 64, the (|B|+1) plane rows to a short ladder and
+    the (|C|+1) columns to multiples of 128, so a mixed batch shares few
+    compiles.  Problems past |B|, |C| <= 255 or |A| <= 4096 go to the
+    sliced sweep instead."""
+    hb = _round_up(max(lb + 1, 16), 16)
+    for cand in (16, 32, 64, 96, 128, 192, 256):
+        if hb <= cand:
+            hb = cand
+            break
+    wc = _round_up(max(lc + 1, 128), 128)
+    lab = _round_up(max(la, 64), 64)
+    if hb > 256 or wc > 256 or lab > 4096:
+        raise ValueError(
+            f"the batched sweep takes |B|,|C| <= 255 and |A| <= 4096; got "
+            f"{la}/{lb}/{lc}. Use the sliced sweep."
+        )
+    return lab, hb, wc
+
+
+def prepare_compact(a, b, c, lab, hb, wc):
+    """Host arrays of one padded problem: lengths, A with a leading pad
+    slot, and B/C with a sentinel at index 0."""
+    la, lb, lc = len(a), len(b), len(c)
+    a_ext = np.full(lab + 2, PAD_SYMBOL, dtype=np.int32)
+    a_ext[1 : la + 1] = np.asarray(a, dtype=np.int32)
+    b_full = np.full(hb, PAD_SYMBOL - 1, dtype=np.int32)
+    b_full[1 : lb + 1] = np.asarray(b, dtype=np.int32)
+    c_full = np.full(wc, PAD_SYMBOL - 2, dtype=np.int32)
+    c_full[1 : lc + 1] = np.asarray(c, dtype=np.int32)
+    lens = np.array([la, lb, lc], dtype=np.int32)
+    return lens, a_ext, b_full, c_full
+
+
+def shear_rows(w, rows, pad_value):
+    """T[k, r] = w[k, k + r] over a (ncols, M) row-major array.
+
+    The pad-flatten-reshape shear: element (k, r) of the reshape is
+    flat[k*(M+1) + r] = w[k, k + r] whenever k + r < M, which callers
+    guarantee by sizing M >= ncols + rows - 1 (they use M = rows + ncols).
+    The trailing ncols pad elements only make the reshape size-legal;
+    no consumed index ever reaches them.
+    """
+    import jax.numpy as jnp
+
+    ncols, M = w.shape
+    flat = jnp.concatenate(
+        [w.reshape(-1), jnp.full((ncols,), pad_value, w.dtype)]
+    )
+    return flat.reshape(ncols, M + 1)[:, :rows]
+
+
+def build_askew(a_ext, qq, rows, cols, pad_value: int = PAD_SYMBOL):
+    """Skewed symbol array ASKREV[r, k] = A[qq - r - k] without a gather.
+
+    A Hankel matrix of the reversed symbol vector, built by shearing a
+    (cols, rows + cols) staging array (shear_rows) and transposing, so
+    the materialized intermediate stays cols x (rows + cols).  Row
+    qq - q of it, sliced to the plane's rows, is plane q's A symbol at
+    (j, k)."""
+    import jax.numpy as jnp
+
+    L = qq + 1
+    pad = jnp.full((max(0, L - a_ext.shape[0]),), pad_value, a_ext.dtype)
+    ae = jnp.concatenate([a_ext, pad])[:L]
+    v = jnp.flip(ae, 0)  # v[m] = A[qq - m]
+    M = rows + cols
+    vp = jnp.concatenate(
+        [v, jnp.full((max(0, M - L),), pad_value, v.dtype)]
+    )[:M]
+    # T[k, r] = vp[k + r] -> transpose is H[r, k] = vp[r + k].
+    return shear_rows(jnp.broadcast_to(vp, (cols, M)), rows, pad_value).T

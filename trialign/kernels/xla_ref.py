@@ -1,9 +1,9 @@
-"""XLA (non-Pallas) reference backend: the anti-diagonal plane sweep as a
-``lax.scan`` over whole (|B|+1, |C|+1) planes.
+"""Plain XLA backend: the anti-diagonal plane sweep as a ``lax.scan`` over
+whole (|B|+1, |C|+1) planes.
 
-This is the portable compiled path -- it runs on CPU and TPU unchanged and
-serves as (a) the bridge oracle between the NumPy golden model and the Pallas
-kernels, and (b) the fallback backend where Pallas is unavailable.  It is the
+This is the portable compiled path -- it runs on CPU and GPU unchanged and
+serves as (a) the plain version the CUDA sweep is measured and checked
+against, and (b) the backend for alphabets past the sweep's cap.  It is the
 software shape of what the PE array does in hardware: one plane of the DP
 cuboid per step, predecessors carried in three ring planes
 (reference: pic/3DDP.png; control FSM src/TriAlign_1cyc.v:276-347).
@@ -21,7 +21,6 @@ from trialign.config import NUM_MATRICES, PAD_SYMBOL, Scoring
 from trialign.kernels.plane_math import (
     PLANE_DELTA,
     SHIFTS,
-    SUB_KIND,
     target_update,
     transition_groups,
 )

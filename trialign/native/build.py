@@ -185,7 +185,7 @@ def align_native(a, b, c, scoring: Scoring = Scoring()):
     border, unscored leading context prepended).
 
     The choice buffer is 4 bytes per DP cell (~0.5 GB at 512^3); this is
-    an oracle for tests and host-side use, not the TPU production path.
+    an oracle for tests and host-side use, not the production path.
 
     Restores natively the capability the reference stubbed out
     (reference: src/PE_1cyc.v:12-14,30).  Runtime submatrix scoring is

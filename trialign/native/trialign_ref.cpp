@@ -4,7 +4,7 @@
 // excludes *.py); this is the framework's native equivalent: a C++
 // implementation of the same 7-matrix 3-D DP the RTL computes
 // (reference: src/PE_1cyc.v:163-218), used as an independent oracle for the
-// TPU kernels and as the "software" column of the speedup table
+// device kernels and as the "software" column of the speedup table
 // (reference: pic/Result.png).
 //
 // Memory: two (7, |B|+1, |C|+1) slabs (previous and current i), i.e. the
@@ -127,7 +127,7 @@ int32_t score_impl(const uint8_t* a, int32_t la, const uint8_t* b,
 //
 // A choice-capture DP: per cell the argmax source matrix of each of the 7
 // targets packs into 3x7 = 21 bits of one uint32 (same encoding as the
-// TPU direct engine, trialign/traceback/direct.py), then a pointer chase
+// device direct engine, trialign/traceback/direct.py), then a pointer chase
 // from (|A|, |B|, |C|) emits matrix indices newest-first.  Free-start
 // semantics match the golden model: zero borders, the walk stops at the
 // first border cell, callers prepend the unscored leading context.

@@ -11,15 +11,14 @@ Semantics mirror engine.forward_sweep / engine.backward_slab exactly
 (modes "free" / "free_jk" / "pin", NEG walls, per-state capture slabs);
 tests assert elementwise equality between the two engines.
 
-Performance notes (all measured on the target chip):
-* symbol planes come from a sheared (Hankel) array via dynamic_slice -- the
-  naive per-step (hb, wc) gather was ~10x the rest of the step combined;
+Design notes (none of these is measured on the H100 yet):
+* symbol planes come from a sheared (Hankel) array via dynamic_slice
+  instead of a per-step (hb, wc) gather;
 * the forward combine is combine-then-shift with the max7 carry (exact:
   every shifted-in cell is re-masked because each target's consume set
   covers its shift axes in every mode);
 * sweeps run as fixed-size scan segments chained through device-resident
-  carries -- one monolithic multi-thousand-step execution over ~GB carries
-  has been seen to crash the remote TPU worker.
+  carries, which bounds the runtime of one execution.
 """
 
 from __future__ import annotations
@@ -150,7 +149,7 @@ def _forward_seg(lens, mcap, a_pad, b_pad, c_pad, carry_in, hb, wc, qq, scoring,
     masks wall every position and the captured slab/final are untouched."""
     import jax.numpy as jnp
 
-    from trialign.kernels.wavefront import build_askew
+    from trialign.kernels.plane_math import build_askew
 
     la, lb, lc, q0 = lens[0], lens[1], lens[2], lens[3]
     w = scoring.weight_matrix().astype(np.int32)
@@ -307,7 +306,7 @@ def _backward_init(end_v, la, hb, wc):
 def _backward_seg(lens, a_pad, b_pad, c_pad, carry_in, hb, wc, qq, scoring, seg):
     import jax.numpy as jnp
 
-    from trialign.kernels.wavefront import build_askew
+    from trialign.kernels.plane_math import build_askew
 
     la, lb, lc, q0 = lens[0], lens[1], lens[2], lens[3]
     w = scoring.weight_matrix().astype(np.int32)
